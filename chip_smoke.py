@@ -5,30 +5,55 @@
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
-1. build   — compile the hand-written CUDA kernels from ``csrc/`` (timed).
-2. kernel  — the bucket-apply kernel against its plain PyTorch version on
-             the card, at S = 4M steps with the bench-shape plan's phase-0
-             and phase-1 bucket lists, P = 12 (3 packed words) and P = 1:
-             csum exact, dsum within rtol 2e-5 / atol 1e-4; both timed.
-3. main    — write the bench-shape GFA (1M nodes, 16 paths x 250k steps)
-             and run ``python -m gfasort_tpu_torch -p sYgs`` (engine auto
-             -> the sweep engine, N > 200k) through ``cli.main``; the
-             kernel's launch counter must move, every path hash, the node
-             and the edge count must be preserved.  A direct engine run on
-             the same graph checks that the positions are finite.
-4. quality — the port's sweep against the sequential oracle on the
-             100k-node certificate workload: rank-MAE/N <= 2e-3 and
-             Spearman >= 0.999.
+1. build      — compile the hand-written CUDA kernels from ``csrc/``, one
+                ``nvcc`` per source, all at once (timed).
+2. kernel     — the 1D bucket-apply kernel against its plain PyTorch
+                version on the card, at S = 4M steps with the bench-shape
+                plan's phase-0 and phase-1 bucket lists, P = 12 (3 packed
+                words) and P = 1: csum exact, dsum within rtol 2e-5 /
+                atol 1e-4; both timed.
+3. kernel_nd  — the nD bucket-apply kernel against its plain version at
+                S = 4M with the bench-shape layout plans' phase-0 and
+                phase-1 kernel bucket lists: D = 2 with P = 8 (2 words),
+                D = 3 with P = 4 (1 word) and D = 2 with P = 1: wacc
+                exact, acc within rtol 2e-5 / atol 1e-4; both timed.
+4. main       — write the bench-shape GFA (1M nodes, 16 paths x 250k
+                steps) and run ``python -m gfasort_tpu_torch -p sYgs``
+                (engine auto -> the sweep engine, N > 200k) through
+                ``cli.main``; the 1D kernel's launch counter must move,
+                every path hash, the node and the edge count must be
+                preserved.  A direct engine run on the same graph checks
+                that the positions are finite.
+5. layout     — ``-p L --dimensions 2`` on the same GFA through
+                ``cli.main`` (the nD sweep engine): the nD kernel launches
+                once per executed sweep, the TSV holds finite coordinates
+                for both ends of every node, the path hashes and the node
+                and edge counts are unchanged.
+6. layout_parts — the same 2D layout taken apart: the host set-up (path
+                index, initial coordinates, plan, consensus tables,
+                upload, each on the host clock) and one rotation of sweeps
+                with CUDA events around the sampler, the kernel, the roll
+                passes and the combine, and one consensus run.
+7. quality    — the port's 1D sweep against the sequential oracle on the
+                100k-node certificate workload: rank-MAE/N <= 2e-3 and
+                Spearman >= 0.999.
+8. quality_nd — the port's layout against the C++ oracle on the 20k-node
+                layout certificate, 2D and 3D, with the bench's nD knobs:
+                stress ratio <= 1.5.
 
 Then the ``nvidia-smi`` card line, one JSON line describing every kernel,
 and ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
-with no result when CUDA is not available.
+with no result when CUDA is not available.  Neither JAX nor the JAX
+package ``gfasort_tpu`` is imported.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -45,7 +70,46 @@ CERT_SMALL = dict(n_nodes=5_000, n_paths=4, steps_per_path=5_000, seed=7,
                   iter_max=30)
 RANK_MAE_MAX = 2e-3
 SPEARMAN_MIN = 0.999
+STRESS_RATIO_MAX = 1.5
 DSUM_RTOL, DSUM_ATOL = 2e-5, 1e-4
+# the bench's nD knobs (ce 48, rotate 12, frac 1.0, dense_upto 4, P 8)
+ND_CERT_KW = dict(consensus_every=48, rotate=12, active_frac=1.0,
+                  dense_upto=4, proposals=8)
+# published H100 SXM peaks: HBM bytes/s and f32 operations/s (no tensor
+# cores)
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+
+
+def bound_ms(S: int, words_in: int, words_out: int, f32_ops_per_step: int):
+    """The least time the card could take: the larger of the bytes
+    (each input word read once, each output word written once) over the
+    HBM rate and the f32 operations over the f32 peak.  Returns
+    (ms, "bytes" or "operations")."""
+    t_bytes = 4.0 * S * (words_in + words_out) / HBM_BYTES_S
+    t_ops = float(S) * f32_ops_per_step / F32_OPS_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def n_words(P: int) -> int:
+    return 1 if P == 1 else -(-P // 4)
+
+
+def ops_1d(P: int, n_buckets: int) -> int:
+    """f32 arithmetic ops per step of the 1D spec, per bucket and sign:
+    P weight adds, |pos - pos_o|, eta / safe, min, xs - xs_o,
+    mu * (mag - safe) * half_sgn (3), dsum -= w * r (2), csum += w;
+    selects and integer compares are not counted."""
+    return 2 * n_buckets * (P + 10)
+
+
+def ops_nd(D: int, P: int, n_buckets: int) -> int:
+    """f32 arithmetic ops per step of the nD spec, per bucket and sign:
+    P weight adds, |pos - pos_o|, eta / safe, min, D deltas, mag^2
+    (2D - 1), sqrt, 1 / sqrt, mag, r (sub, 3 muls, min), w * r,
+    acc -= wr * delta (2D), wacc += w."""
+    return 2 * n_buckets * (P + 5 * D + 13)
 
 
 def card() -> str:
@@ -126,71 +190,127 @@ def phase_kernel(plan, pidx, card_line):
             ms = cuda_ms(lambda: bucket_apply(xs, pos, words, eta, buckets, P))
             plain_ms = cuda_ms(
                 lambda: bucket_apply_ref(xs, pos, words, eta, buckets, P), 5)
+            bms, by = bound_ms(S, 2 + n_words(P), 2, ops_1d(P, len(buckets)))
             rec = dict(S=S, P=P, buckets=[list(b) for b in buckets],
                        max_abs_err=float(err.max()),
                        bit_identical=bool(torch.equal(d_k, d_r)),
-                       ms=ms, plain_ms=plain_ms)
+                       ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
             results[(ph_i, P)] = rec
             say("kernel", card_line, phase_of_plan=ph_i, **rec)
     return results
 
 
-def phase_main(card_line):
-    from gfasort_tpu.index import PathIndex
-    from gfasort_tpu.io.fast_gfa import load_gfa_numeric_fast
-    from gfasort_tpu.params import YgsParams
-    from gfasort_tpu.tools.make_synthetic_gfa import write_synthetic_gfa
-    from gfasort_tpu_torch import cli
+def phase_kernel_nd(plans, S, pos_np, card_line):
+    """``plans``: {D: bench-shape layout plan}."""
+    from gfasort_tpu_torch.ops.sweep_dense import (dense_apply_nd,
+                                                   dense_apply_nd_ref)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    pos = torch.from_numpy(pos_np).to(dev)
+    results = {}
+    for D, P in ((2, 8), (3, 4), (2, 1)):
+        plan = plans[D]
+        # layout coordinates at the bench's scale (x ~ path position,
+        # the other dimensions ~ N(0, 2N)); a few coincident ones hit
+        # the zero guard
+        c_np = (rng.standard_normal((D, S)) * 1414.0).astype(np.float32)
+        c_np[0] = pos_np + rng.standard_normal(S).astype(np.float32)
+        c_np[:, 7::1001] = c_np[:, 8::1001][:, :c_np[:, 7::1001].shape[1]]
+        my_c = torch.from_numpy(c_np).to(dev)
+        eta = float(plan.sweep_eta[0])
+        for ph_i in (0, 1):
+            buckets = plan.phases[ph_i].kernel_buckets
+            words = [w.to(dev) for w in contract_choices(rng, S, buckets, P)]
+            a_k, w_k = dense_apply_nd(pos, words, my_c, eta, buckets, P)
+            a_r, w_r = dense_apply_nd_ref(pos, words, my_c, eta, buckets, P)
+            torch.cuda.synchronize()
+            if not torch.equal(w_k, w_r):
+                raise AssertionError(f"wacc differs (D={D}, P={P}, phase {ph_i})")
+            err = (a_k - a_r).abs()
+            bound = DSUM_ATOL + DSUM_RTOL * a_r.abs()
+            if not bool((err <= bound).all()):
+                raise AssertionError(f"acc off by {float(err.max())} "
+                                     f"(D={D}, P={P}, phase {ph_i})")
+            ms = cuda_ms(lambda: dense_apply_nd(pos, words, my_c, eta,
+                                                buckets, P))
+            plain_ms = cuda_ms(lambda: dense_apply_nd_ref(
+                pos, words, my_c, eta, buckets, P), 3)
+            bms, by = bound_ms(S, 1 + n_words(P) + D, D + 1,
+                               ops_nd(D, P, len(buckets)))
+            rec = dict(S=S, D=D, P=P, buckets=[list(b) for b in buckets],
+                       max_abs_err=float(err.max()),
+                       bit_identical=bool(torch.equal(a_k, a_r)),
+                       ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            results[(D, P, ph_i)] = rec
+            say("kernel_nd", card_line, phase_of_plan=ph_i, **rec)
+            del words, a_k, w_k, a_r, w_r, err, bound
+        del my_c
+    torch.cuda.empty_cache()
+    return results
+
+
+def reset_launches() -> None:
     from gfasort_tpu_torch.ops import sweep_dense
+
+    sweep_dense.bucket_apply.launches = 0
+    sweep_dense.dense_apply_nd.launches = 0
+
+
+def read_launches() -> dict:
+    from gfasort_tpu_torch.ops import sweep_dense
+
+    return {"bucket_apply": sweep_dense.bucket_apply.launches,
+            "dense_apply_nd": sweep_dense.dense_apply_nd.launches}
+
+
+def phase_main(gfa_in, tmp, card_line):
+    from gfasort_tpu_torch import cli
+    from gfasort_tpu_torch.index import PathIndex
+    from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
     from gfasort_tpu_torch.ops.sweep import path_linear_sgd_sweep
     from gfasort_tpu_torch.ops.sweep_plan import make_sweep_plan
+    from gfasort_tpu_torch.params import YgsParams
 
-    n, paths, steps = S_BENCH
-    with tempfile.TemporaryDirectory() as tmp:
-        gfa_in = os.path.join(tmp, "bench.gfa")
-        gfa_out = os.path.join(tmp, "sorted.gfa")
-        trace = os.path.join(tmp, "steps.jsonl")
-        t0 = time.perf_counter()
-        write_synthetic_gfa(gfa_in, n_nodes=n, n_paths=paths,
-                            steps_per_path=steps, seed=0)
-        t_gen = time.perf_counter() - t0
-        g0 = load_gfa_numeric_fast(gfa_in)
-        hashes0 = g0.compute_all_path_hashes()
-        nodes0, edges0 = g0.node_count(), len(g0.edges)
-        pidx = PathIndex.from_graph(g0)
-        params = replace(YgsParams.from_graph(g0).path_sgd, iter_max=100)
-        plan = make_sweep_plan(pidx, params)
+    gfa_out = os.path.join(tmp, "sorted.gfa")
+    trace = os.path.join(tmp, "steps.jsonl")
+    g0 = load_gfa_numeric_fast(gfa_in)
+    hashes0 = g0.compute_all_path_hashes()
+    nodes0, edges0 = g0.node_count(), len(g0.edges)
+    pidx = PathIndex.from_graph(g0)
+    params = replace(YgsParams.from_graph(g0).path_sgd, iter_max=100)
+    plan = make_sweep_plan(pidx, params)
 
-        sweep_dense.bucket_apply.launches = 0
-        t0 = time.perf_counter()
-        rc = cli.main(["-i", gfa_in, "-o", gfa_out, "-p", "sYgs",
-                       "--trace-out", trace, "-v", "0"])
-        t_cli = time.perf_counter() - t0
-        launches = sweep_dense.bucket_apply.launches
-        if rc != 0:
-            raise AssertionError(f"cli.main returned {rc}")
-        if launches <= 0:
-            raise AssertionError("the main path launched no bucket-apply kernel")
-        with open(trace) as fh:
-            events = [json.loads(line) for line in fh if line.strip()]
-        y_s = next(e["seconds"] for e in events if e["event"] == "SGD")
-        g1 = load_gfa_numeric_fast(gfa_out)
-        if g1.compute_all_path_hashes() != hashes0:
-            raise AssertionError("path hashes changed")
-        if (g1.node_count(), len(g1.edges)) != (nodes0, edges0):
-            raise AssertionError("node or edge count changed")
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["-i", gfa_in, "-o", gfa_out, "-p", "sYgs",
+                   "--trace-out", trace, "-v", "0"])
+    t_cli = time.perf_counter() - t0
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc}")
+    if launches["bucket_apply"] <= 0:
+        raise AssertionError("the main path launched no bucket-apply kernel")
+    with open(trace) as fh:
+        events = [json.loads(line) for line in fh if line.strip()]
+    y_s = next(e["seconds"] for e in events if e["event"] == "SGD")
+    g1 = load_gfa_numeric_fast(gfa_out)
+    if g1.compute_all_path_hashes() != hashes0:
+        raise AssertionError("path hashes changed")
+    if (g1.node_count(), len(g1.edges)) != (nodes0, edges0):
+        raise AssertionError("node or edge count changed")
 
-        # positions of the same engine on the same graph, read back
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        x = path_linear_sgd_sweep(g0, params, pidx, device="cuda")
-        t_engine = time.perf_counter() - t0
-        if x.shape != (nodes0,) or not np.isfinite(x).all():
-            raise AssertionError("sweep positions are not finite [N]")
+    # positions of the same engine on the same graph, read back
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = path_linear_sgd_sweep(g0, params, pidx, device="cuda")
+    t_engine = time.perf_counter() - t0
+    if x.shape != (nodes0,) or not np.isfinite(x).all():
+        raise AssertionError("sweep positions are not finite [N]")
 
     updates = plan.n_sweeps * plan.updates_per_sweep
     say("main", card_line, nodes=nodes0, edges=edges0, steps=pidx.total_steps,
-        gen_gfa_s=t_gen, cli_s=t_cli, y_step_s=y_s,
+        cli_s=t_cli, y_step_s=y_s,
         steps_s={e["event"] + f"#{e['step']}": e["seconds"] for e in events},
         engine_s=t_engine, n_sweeps=plan.n_sweeps, exec_sweeps=plan.n_exec,
         proposals=plan.proposals, updates=updates,
@@ -200,11 +320,207 @@ def phase_main(card_line):
     return launches
 
 
+def phase_layout(gfa_in, tmp, card_line):
+    """``-p L --dimensions 2`` through the CLI on the bench GFA."""
+    from gfasort_tpu_torch import cli
+    from gfasort_tpu_torch.index import PathIndex
+    from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
+    from gfasort_tpu_torch.ops.sweep_plan import make_layout_plan
+    from gfasort_tpu_torch.params import LayoutSGDParams
+
+    gfa_out = os.path.join(tmp, "layout.gfa")
+    tsv = os.path.join(tmp, "layout.tsv")
+    trace = os.path.join(tmp, "layout_steps.jsonl")
+    g0 = load_gfa_numeric_fast(gfa_in)
+    hashes0 = g0.compute_all_path_hashes()
+    nodes0, edges0 = g0.node_count(), len(g0.edges)
+    pidx = PathIndex.from_graph(g0)
+    lp = replace(LayoutSGDParams().derive_from_graph(pidx, 2), iter_max=30)
+    plan = make_layout_plan(pidx, lp)
+    del g0, pidx
+
+    log = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(log):
+        rc = cli.main(["-i", gfa_in, "-o", gfa_out, "-p", "L",
+                       "--dimensions", "2", "--layout-out", tsv,
+                       "--trace-out", trace, "-v", "1"])
+    t_cli = time.perf_counter() - t0
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc}:\n{log.getvalue()}")
+    if launches["dense_apply_nd"] != plan.n_exec:
+        raise AssertionError(f"{launches['dense_apply_nd']} nD kernel launches, "
+                             f"expected one per executed sweep ({plan.n_exec})")
+    m = re.search(r"layout stress: ([0-9.eE+-]+|nan|inf)", log.getvalue())
+    if m is None:
+        raise AssertionError("the CLI printed no layout stress")
+    stress = float(m.group(1))
+    with open(trace) as fh:
+        events = [json.loads(line) for line in fh if line.strip()]
+    l_s = next(e["seconds"] for e in events if e["event"] == "2D layout")
+    with open(tsv) as fh:
+        vals = np.array(fh.read().split()[5:], dtype=np.float64).reshape(-1, 5)
+    if vals.shape[0] != nodes0 or not np.array_equal(vals[:, 0],
+                                                     np.arange(nodes0)):
+        raise AssertionError(f"the TSV holds {vals.shape[0]} rows, "
+                             f"expected {nodes0}")
+    if not np.isfinite(vals[:, 1:]).all():
+        raise AssertionError("the TSV holds non-finite coordinates")
+    g1 = load_gfa_numeric_fast(gfa_out)
+    if g1.compute_all_path_hashes() != hashes0:
+        raise AssertionError("path hashes changed")
+    if (g1.node_count(), len(g1.edges)) != (nodes0, edges0):
+        raise AssertionError("node or edge count changed")
+    if not np.isfinite(stress) or stress <= 0:
+        raise AssertionError(f"layout stress {stress}")
+    updates = plan.n_sweeps * plan.updates_per_sweep
+    say("layout", card_line, dims=2, nodes=nodes0, cli_s=t_cli,
+        layout_step_s=l_s, stress=stress, n_sweeps=plan.n_sweeps,
+        exec_sweeps=plan.n_exec, proposals=plan.proposals,
+        consensus_every=plan.consensus_every, updates=updates,
+        pair_updates_per_s_step=updates / l_s, kernel_launches=launches,
+        tsv_rows=int(vals.shape[0]), path_hashes_preserved=True)
+    return launches
+
+
+def phase_layout_parts(gfa_in, card_line, n_sweeps: int = 12):
+    """The 2D layout's host set-up on the host clock, and ``n_sweeps``
+    sweeps (one rotation) taken apart with CUDA events: the same calls
+    in the same order as ``ops.sweep_nd.nd_sweep_once``."""
+    import itertools
+
+    from gfasort_tpu_torch.convert import layout_state, layout_static_arrays
+    from gfasort_tpu_torch.index import PathIndex
+    from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
+    from gfasort_tpu_torch.ops.exact import layout_initial_coords
+    from gfasort_tpu_torch.ops.keys import key_data, sweep_key_table
+    from gfasort_tpu_torch.ops.node_sum import build_gather_consensus
+    from gfasort_tpu_torch.ops.sweep_common import (pack_choices_words,
+                                                    sample_blocks,
+                                                    sampler_consts, sweep_rng)
+    from gfasort_tpu_torch.ops.sweep_dense import dense_apply_nd
+    from gfasort_tpu_torch.ops.sweep_nd import _roll_half_nd, nd_sweep_once
+    from gfasort_tpu_torch.ops.sweep_plan import make_layout_plan
+    from gfasort_tpu_torch.params import LayoutSGDParams
+
+    dev = torch.device("cuda")
+    host = {}
+    g = load_gfa_numeric_fast(gfa_in)
+    t0 = time.perf_counter()
+    pidx = PathIndex.from_graph(g)
+    host["path_index_s"] = time.perf_counter() - t0
+    del g
+    lp = replace(LayoutSGDParams().derive_from_graph(pidx, 2), iter_max=30)
+    t0 = time.perf_counter()
+    init = layout_initial_coords(pidx, 2, lp.seed)
+    host["initial_coords_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = make_layout_plan(pidx, lp)
+    consts = [[sampler_consts(ph, c, dev) for c in (False, True)]
+              for ph in plan.phases]
+    host["plan_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gc = build_gather_consensus(pidx.step_node_idx, pidx.num_nodes, dev)
+    torch.cuda.synchronize()
+    host["consensus_tables_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pos, rank, cnt, rev, length = layout_static_arrays(pidx, dev)
+    cs, _ = layout_state(pidx, init, 2, dev)
+    torch.cuda.synchronize()
+    host["upload_s"] = time.perf_counter() - t0
+    host["total_s"] = sum(host.values())
+    keys = sweep_key_table(key_data(lp.seed), plan.n_exec, plan.proposals)
+    S, D, P = pos.shape[0], 2, plan.proposals
+
+    def run_parts(e, cs, ev):
+        i, eta, cooling = plan.sweep(e)
+        phase = plan.phases[i]
+        ev[0].record()
+        first = sweep_rng(keys[e][0], S, dev)
+        rest = (sweep_rng(w, S, dev) for w in keys[e][1:])
+        sidxs = sample_blocks(consts[i][cooling], itertools.chain([first], rest),
+                              cooling, rank, cnt, plan.active_frac)
+        other_end = ((first[0] >> 29) & 1) == 1
+        my_pos = torch.where(other_end, pos + length, pos)
+        lane0 = torch.where(other_end, 1 - rev, rev) == 0
+        my_c = torch.where(lane0, cs[:D], cs[D:])
+        words = sidxs[:1] if P == 1 else pack_choices_words(sidxs)
+        ev[1].record()
+        acc, wacc = dense_apply_nd(my_pos, words, my_c, eta,
+                                   phase.kernel_buckets, P)
+        ev[2].record()
+        iota = torch.arange(S, device=dev)
+        eta_t = torch.full((), eta, dtype=cs.dtype, device=dev)
+        for k, ki in phase.roll_buckets:
+            d1, w1 = _roll_half_nd(my_pos, my_c, eta_t, -k, [
+                (s == ki, torch.roll(s, -k) == ~ki) for s in sidxs], iota)
+            d2, w2 = _roll_half_nd(my_pos, my_c, eta_t, +k, [
+                (s == ~ki, torch.roll(s, k) == ki) for s in sidxs], iota)
+            acc = acc + d1 + d2
+            wacc = wacc + w1 + w2
+        ev[3].record()
+        upd = acc / torch.clamp_min(wacc, 1.0)
+        out = torch.cat([cs[:D] + torch.where(lane0, upd, 0.0),
+                         cs[D:] + torch.where(lane0, 0.0, upd)])
+        ev[4].record()
+        return out
+
+    def whole(e, cs):
+        i, eta, cooling = plan.sweep(e)
+        return nd_sweep_once(cs, pos, rank, cnt, rev, length, plan.phases[i],
+                             consts[i][cooling], keys[e], eta, cooling, P,
+                             plan.active_frac)
+
+    # warm-up, then the parts and the whole sweep on the same sweeps
+    cs_a = whole(0, cs)
+    cs_b = run_parts(0, cs, [torch.cuda.Event(enable_timing=True)
+                             for _ in range(5)])
+    torch.cuda.synchronize()
+    if not torch.equal(cs_a, cs_b):
+        raise AssertionError("the timed parts differ from nd_sweep_once")
+    names = ("sampler", "kernel", "roll_passes", "combine")
+    parts = dict.fromkeys(names, 0.0)
+    cs_p = cs
+    for e in range(n_sweeps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        cs_p = run_parts(e, cs_p, ev)
+        torch.cuda.synchronize()
+        for j, name in enumerate(names):
+            parts[name] += ev[j].elapsed_time(ev[j + 1])
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    cs_w = cs
+    torch.cuda.synchronize()
+    start.record()
+    for e in range(n_sweeps):
+        cs_w = whole(e, cs_w)
+    end.record()
+    torch.cuda.synchronize()
+    whole_ms = start.elapsed_time(end) / n_sweeps
+    if not torch.equal(cs_p, cs_w):
+        raise AssertionError("the timed parts differ from nd_sweep_once")
+    cons_ms = cuda_ms(lambda: gc(cs_w), 5)
+    per_sweep = {k: v / n_sweeps for k, v in parts.items()}
+    updates = plan.n_sweeps * plan.updates_per_sweep
+    loop_s = (plan.n_exec * whole_ms
+              + plan.n_exec // plan.consensus_every * cons_ms) / 1e3
+    say("layout_parts", card_line, dims=2, host_setup_s=host,
+        sweeps_timed=n_sweeps, ms_per_sweep=per_sweep,
+        whole_sweep_ms=whole_ms, consensus_ms=cons_ms,
+        consensus_runs=plan.n_exec // plan.consensus_every,
+        device_loop_s_est=loop_s,
+        pair_updates_per_s_device_loop=updates / loop_s,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del cs, cs_a, cs_b, cs_p, cs_w, gc, pos, rank, cnt, rev, length, consts
+    torch.cuda.empty_cache()
+
+
 def phase_quality(card_line):
-    from gfasort_tpu import native
-    from gfasort_tpu.bench_util import rank_quality, synthetic_path_index
-    from gfasort_tpu.params import PathSGDParams
+    from gfasort_tpu_torch import native
+    from gfasort_tpu_torch.bench_util import rank_quality, synthetic_path_index
     from gfasort_tpu_torch.ops.sweep import path_linear_sgd_sweep
+    from gfasort_tpu_torch.params import PathSGDParams
 
     use_native = native.available()
     if not use_native:
@@ -223,7 +539,7 @@ def phase_quality(card_line):
     if use_native:
         x_oracle = native.path_linear_sgd_native(None, po, pidx)
     else:
-        from gfasort_tpu.ops.exact import path_linear_sgd_exact
+        from gfasort_tpu_torch.ops.exact import path_linear_sgd_exact
 
         x_oracle = path_linear_sgd_exact(None, po, pidx)
     t_oracle = time.perf_counter() - t0
@@ -236,14 +552,45 @@ def phase_quality(card_line):
         raise AssertionError(f"quality certificate failed: {q}")
 
 
+def phase_quality_nd(card_line):
+    from gfasort_tpu_torch.bench_util import layout_quality_vs_oracle
+
+    for dims in (2, 3):
+        t0 = time.perf_counter()
+        q = layout_quality_vs_oracle(dims=dims, device="cuda", **ND_CERT_KW)
+        if q is None:
+            raise AssertionError("the C++ layout oracle cannot be built")
+        ok = q["ratio"] <= STRESS_RATIO_MAX
+        say("quality_nd", card_line, seconds=time.perf_counter() - t0,
+            passed=ok, **ND_CERT_KW, **q)
+        if not ok:
+            raise AssertionError(f"layout certificate failed: {q}")
+
+
+def kernel_entry(name, source, replaces, launches, cases, main_case):
+    """One entry of the kernels line: the main path's launch count and
+    the main-path case's times and bound; the worst error of all cases."""
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        # no single PyTorch call computes either function
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from gfasort_tpu.bench_util import synthetic_path_index
-    from gfasort_tpu.params import PathSGDParams
     from gfasort_tpu_torch import kernels
-    from gfasort_tpu_torch.ops.sweep_plan import make_sweep_plan
+    from gfasort_tpu_torch.bench_util import synthetic_path_index
+    from gfasort_tpu_torch.ops.sweep_plan import (make_layout_plan,
+                                                  make_sweep_plan)
+    from gfasort_tpu_torch.params import LayoutSGDParams, PathSGDParams
+    from gfasort_tpu_torch.tools.make_synthetic_gfa import write_synthetic_gfa
 
     card_line = card()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -261,25 +608,41 @@ def main() -> int:
     bench = synthetic_path_index(*S_BENCH, seed=0)
     bench_plan = make_sweep_plan(bench, PathSGDParams().derive_from_graph(bench))
     kres = phase_kernel(bench_plan, bench, card_line)
+    nd_plans = {D: make_layout_plan(bench, replace(
+        LayoutSGDParams().derive_from_graph(bench, D), iter_max=30))
+        for D in (2, 3)}
+    kres_nd = phase_kernel_nd(nd_plans, bench.total_steps,
+                              bench.step_pos.astype(np.float32), card_line)
     del bench
 
-    launches = phase_main(card_line)
+    n, paths, steps = S_BENCH
+    with tempfile.TemporaryDirectory() as tmp:
+        gfa_in = os.path.join(tmp, "bench.gfa")
+        t0 = time.perf_counter()
+        write_synthetic_gfa(gfa_in, n_nodes=n, n_paths=paths,
+                            steps_per_path=steps, seed=0)
+        say("gen_gfa", card_line, seconds=time.perf_counter() - t0)
+        launches = phase_main(gfa_in, tmp, card_line)
+        launches_nd = phase_layout(gfa_in, tmp, card_line)
+        phase_layout_parts(gfa_in, card_line)
     phase_quality(card_line)
+    phase_quality_nd(card_line)
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
-    main_case = kres[(0, 12)]
+    bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
+                 or k == "gfasort_tpu" or k.startswith("gfasort_tpu."))
+    if bad:
+        raise AssertionError(f"the port imported {bad}")
     print(card_line, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "bucket_apply",
-        "route": "cuda",
-        "source": "gfasort_tpu_torch/csrc/bucket_apply.cu",
-        "replaces": "gfasort_tpu/ops/sweep_dense.py:136",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        kernel_entry("bucket_apply", "gfasort_tpu_torch/csrc/bucket_apply.cu",
+                     "gfasort_tpu/ops/sweep_dense.py:136",
+                     launches["bucket_apply"], kres, kres[(0, 12)]),
+        kernel_entry("dense_apply_nd",
+                     "gfasort_tpu_torch/csrc/dense_apply_nd.cu",
+                     "gfasort_tpu/ops/sweep_dense.py:405",
+                     launches_nd["dense_apply_nd"], kres_nd,
+                     kres_nd[(2, 8, 0)]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

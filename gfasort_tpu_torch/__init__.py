@@ -1,13 +1,15 @@
 """gfasort_tpu_torch — the PyTorch/CUDA port of gfasort_tpu.
 
-The JAX package ``gfasort_tpu`` stays the reference.  This package
-imports its JAX-free host layers (graph, index, params, io, algos, the
-C++ oracle, the sweep planners) and ports the device side: the 1D
-offset-sweep engine (:mod:`.ops.sweep`), its sampler, the node
-consensus, and the bucket-apply kernel written by hand in CUDA C++ for
-Hopper (``csrc/bucket_apply.cu``).  It imports ``torch`` and never
-``jax``.  Entry points: :func:`.pipeline.run_pipeline` and
-``python -m gfasort_tpu_torch``.
+The JAX package ``gfasort_tpu`` stays the reference; this package
+imports nothing of it.  It carries its own copies of the host layers
+(graph, index, params, io, algos, trace, the exact oracle and its C++
+twin in :mod:`.native`, the sweep policy) and ports the device side:
+the 1D offset-sweep engine (:mod:`.ops.sweep`), the nD layout sweep
+engine (:mod:`.ops.sweep_nd`), their sampler and node consensus, and
+the bucket-apply kernels written by hand in CUDA C++ for Hopper
+(``csrc/bucket_apply.cu``, ``csrc/dense_apply_nd.cu``).  It imports
+``torch`` and never ``jax``.  Entry points:
+:func:`.pipeline.run_pipeline` and ``python -m gfasort_tpu_torch``.
 """
 
 __version__ = "0.1.0"

@@ -18,9 +18,8 @@ import argparse
 import sys
 import time
 
-from gfasort_tpu.io import gfa as gfa_io
-from gfasort_tpu.io.fast_gfa import load_gfa_numeric_fast
-
+from .io import gfa as gfa_io
+from .io.fast_gfa import load_gfa_numeric_fast
 from .pipeline import run_pipeline, validate_pipeline
 
 

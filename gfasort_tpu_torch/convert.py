@@ -1,10 +1,13 @@
 """State carried across from the JAX reference.
 
 The port and the JAX package are fed from one numpy state: the
-``PathIndex`` arrays and the initial node positions.  These helpers
-produce exactly the tensors the JAX ``build_sweep_runner`` uploads
-(``gfasort_tpu/ops/sweep.py``: ``pos``, ``rank``, ``cnt``, ``xs0``,
-``x_node0``) and turn a JAX key into the port's key words.
+``PathIndex`` arrays and the initial node positions or node-end
+coordinates.  These helpers produce exactly the tensors the JAX
+``build_sweep_runner`` uploads (``gfasort_tpu/ops/sweep.py``: ``pos``,
+``rank``, ``cnt``, ``xs0``, ``x_node0``), those of
+``build_sweep_nd_runner`` (``gfasort_tpu/ops/sweep_nd.py``: the static
+``rev`` and ``len`` rows, and ``make_state``'s ``cs0`` and
+``cs_node0``), and turn a JAX key into the port's key words.
 """
 
 from __future__ import annotations
@@ -14,12 +17,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gfasort_tpu.index import PathIndex
-
 from .device import resolve_device
+from .index import PathIndex
 
 __all__ = ["static_arrays", "initial_state", "sweep_state_from_numpy",
-           "key_words_from_jax"]
+           "layout_static_arrays", "layout_state", "key_words_from_jax"]
 
 
 def static_arrays(pidx: PathIndex, device):
@@ -46,6 +48,33 @@ def initial_state(pidx: PathIndex, x0: Optional[np.ndarray], device):
 def sweep_state_from_numpy(pidx: PathIndex, x0: Optional[np.ndarray], device):
     """(pos, rank, cnt, xs0, x_node0) on ``device``."""
     return static_arrays(pidx, device) + initial_state(pidx, x0, device)
+
+
+def layout_static_arrays(pidx: PathIndex, device):
+    """(pos f32, rank i32, cnt i32, rev i32, len f32), each [S] on
+    ``device``: ``rev`` is each step's orientation bit, ``len`` the
+    length of its node."""
+    dev = resolve_device(device)
+    rev = (pidx.step_handle & 1).astype(np.int32)
+    length = np.asarray(pidx.node_len, dtype=np.float32)[pidx.step_node_idx]
+    return static_arrays(pidx, dev) + (
+        torch.from_numpy(np.ascontiguousarray(rev)).to(dev),
+        torch.from_numpy(np.ascontiguousarray(length)).to(dev),
+    )
+
+
+def layout_state(pidx: PathIndex, init_node_coords: np.ndarray, dims: int,
+                 device):
+    """(cs0 f32 [2D, S], cs_node0 f32 [2D, N]) from node-end coordinates
+    [2N, D] (row ``2n + e`` is end ``e`` of node ``n``): row ``e*D + d``
+    holds end ``e``'s dimension ``d``, per step and per node."""
+    dev = resolve_device(device)
+    N = pidx.num_nodes
+    nc = np.asarray(init_node_coords, dtype=np.float32).reshape(N, 2, dims)
+    cs0 = nc[pidx.step_node_idx].transpose(1, 2, 0).reshape(2 * dims, -1)
+    cs_node0 = nc.transpose(1, 2, 0).reshape(2 * dims, N)
+    return (torch.from_numpy(np.ascontiguousarray(cs0)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(cs_node0)).to(dev))
 
 
 def key_words_from_jax(key_data) -> np.ndarray:

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` file into one shared library with
-a plain C interface (``-gencode arch=compute_90a,code=sm_90a``), bound
+``nvcc`` compiles every ``csrc/*.cu`` file (one ``nvcc`` per source, all
+started together) and links the objects into one shared library with a
+plain C interface (``-gencode arch=compute_90a,code=sm_90a``), bound
 with ``ctypes``.  The library is built at first use into ``_build/``
 (git-ignored) and rebuilt whenever a source or a flag changes.  Nothing
 here runs at import: the CPU tests import every module of the package.
@@ -20,7 +21,8 @@ import tempfile
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "nvcc_path", "build", "library", "bucket_apply_cuda"]
+__all__ = ["NVCC_FLAGS", "nvcc_path", "build", "library", "bucket_apply_cuda",
+           "dense_apply_nd_cuda"]
 
 _HERE = pathlib.Path(__file__).parent
 _CSRC = _HERE / "csrc"
@@ -30,7 +32,7 @@ _BUILD = _HERE / "_build"
 # every f32 op rounded the way the plain PyTorch version rounds it.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
-    "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -67,21 +69,35 @@ def build() -> tuple:
     if lib_path.exists():
         return lib_path, ""
     _BUILD.mkdir(exist_ok=True)
-    # build under a temporary name, then rename: a concurrent loader
-    # never sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=_BUILD) as tmpdir:
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        # wait for every compiler before judging any: none outlives build()
+        log = [proc.communicate()[0] for proc in procs]
+        for src, proc, out in zip(_sources(), procs, log):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
+        # link under a temporary name, then rename: a concurrent loader
+        # never sees a half-written library
+        tmp = os.path.join(tmpdir, "lib.so")
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", tmp, *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(tmp, lib_path)
     for old in _BUILD.glob("libgfasort_torch_kernels_*.so"):
         if old != lib_path:
             old.unlink(missing_ok=True)
-    return lib_path, proc.stdout + proc.stderr
+    return lib_path, "".join(log)
 
 
 @functools.cache
@@ -94,6 +110,11 @@ def library() -> ctypes.CDLL:
         ctypes.POINTER(ci), ctypes.POINTER(ci), ci, vp, vp, vp,
     ]
     lib.gfasort_bucket_apply.restype = ci
+    lib.gfasort_dense_apply_nd.argtypes = [
+        ci, vp, vp, ci, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float,
+        ctypes.POINTER(ci), ctypes.POINTER(ci), ci, vp, vp, vp,
+    ]
+    lib.gfasort_dense_apply_nd.restype = ci
     return lib
 
 
@@ -116,3 +137,26 @@ def bucket_apply_cuda(xs, pos, words, eta: float, buckets, proposals: int):
     if err != 0:
         raise RuntimeError(f"bucket_apply kernel launch failed: CUDA error {err}")
     return dsum, csum
+
+
+def dense_apply_nd_cuda(my_pos, words, my_c, eta: float, buckets,
+                        proposals: int):
+    """Launch the nD bucket-apply kernel on the current stream.  Inputs
+    are validated by the caller (``ops/sweep_dense.dense_apply_nd``)."""
+    lib = library()
+    D, S = my_c.shape
+    acc = torch.empty_like(my_c)
+    wacc = torch.empty_like(my_pos)
+    nb = len(buckets)
+    ks = (ctypes.c_int * nb)(*[k for k, _ in buckets])
+    kis = (ctypes.c_int * nb)(*[ki for _, ki in buckets])
+    wptr = [w.data_ptr() for w in words] + [None] * (4 - len(words))
+    stream = torch.cuda.current_stream(my_pos.device).cuda_stream
+    err = lib.gfasort_dense_apply_nd(
+        my_pos.device.index, my_pos.data_ptr(), my_c.data_ptr(), D, *wptr,
+        len(words), proposals, S, float(eta), ks, kis, nb, acc.data_ptr(),
+        wacc.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"dense_apply_nd kernel launch failed: CUDA error {err}")
+    return acc, wacc

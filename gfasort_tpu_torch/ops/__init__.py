@@ -1,2 +1,4 @@
-"""Device side of the port: the 1D sweep engine, its sampler, key
-schedule, plan, consensus and the bucket-apply kernel wrapper."""
+"""Device side of the port: the 1D and nD sweep engines, their sampler,
+key schedule, plans and consensus, the bucket-apply kernel wrappers, and
+the host copies they use (the exact oracle, the eta schedule, the
+fastpow tables, the sweep policy)."""

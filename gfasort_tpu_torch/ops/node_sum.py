@@ -10,6 +10,10 @@ width classes (1, 2, 4, ... up to the largest degree), each node's step
 list padded to its class width with a sentinel that points at an
 appended zero.  A consensus is then one gather-sum per class, with no
 scatter and no float atomics, so it is deterministic on CUDA.
+
+The same tables serve the 1D engine's ``[S]`` positions and the layout
+engine's ``[R, S]`` coordinate rows (R = 2D, one row per node end and
+dimension): every row is averaged over the same step->node map.
 """
 
 from __future__ import annotations
@@ -30,17 +34,20 @@ class GatherConsensus:
     slot_node: torch.Tensor     # int64 [NL] node index of each slot
 
     def __call__(self, xs: torch.Tensor):
-        """xs [S] -> (xs_new [S], xn_sorted [NL] per-node means)."""
-        x_ext = torch.cat([xs, xs.new_zeros(1)])
-        sums = torch.cat([x_ext[ix].sum(dim=1) for ix in self.class_idx])
+        """xs [S] or [R, S] -> (xs_new, same shape; xn_sorted [NL] or
+        [R, NL] per-node means)."""
+        x_ext = torch.cat([xs, xs.new_zeros(xs.shape[:-1] + (1,))], dim=-1)
+        sums = torch.cat([x_ext[..., ix].sum(dim=-1) for ix in self.class_idx],
+                         dim=-1)
         xn = sums * self.inv_cnt
-        return xn[self.node_slot], xn
+        return xn[..., self.node_slot], xn
 
     def to_node_order(self, xn_sorted, x_node_init):
-        """Means in node order; nodes with no steps keep ``x_node_init``
-        (the reference leaves their positions untouched)."""
+        """Means in node order ([N] or [R, N]); nodes with no steps keep
+        ``x_node_init`` (the reference leaves their positions
+        untouched)."""
         x_node = x_node_init.clone()
-        x_node[self.slot_node] = xn_sorted
+        x_node[..., self.slot_node] = xn_sorted
         return x_node
 
 

@@ -19,19 +19,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gfasort_tpu.graph import BidirectedGraph
-from gfasort_tpu.index import PathIndex
-from gfasort_tpu.ops.sweep import SweepResult
-from gfasort_tpu.params import PathSGDParams
-
 from ..convert import initial_state, static_arrays
 from ..device import resolve_device
+from ..graph import BidirectedGraph
+from ..index import PathIndex
+from ..params import PathSGDParams
 from .keys import key_data, sweep_key_table
 from .node_sum import build_gather_consensus
 from .sweep_common import (SamplerConsts, pack_choices_words, sample_blocks,
                            sampler_consts, sweep_rng)
 from .sweep_dense import bucket_apply
 from .sweep_plan import PhasePlan, make_sweep_plan
+from .sweep_policy import SweepResult
 
 __all__ = ["build_sweep_runner", "path_linear_sgd_sweep", "path_sgd_sort_sweep",
            "sweep_once"]

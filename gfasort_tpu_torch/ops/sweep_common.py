@@ -17,7 +17,7 @@ from dataclasses import dataclass
 
 import torch
 
-from gfasort_tpu.ops.sweep_common import INACTIVE, INACTIVE8, PACKED_INACTIVE
+import numpy as np
 
 from .sweep_plan import PhasePlan
 
@@ -25,6 +25,17 @@ __all__ = ["INACTIVE", "INACTIVE8", "PACKED_INACTIVE", "sweep_rng",
            "SamplerConsts", "sampler_consts", "snap_idx_track", "zipf_core",
            "sample_blocks",
            "pack_choices", "pack_choices_words", "unpack_choice"]
+
+# Sentinel "no partner chosen" value of a choice array, as in the JAX
+# package (i32, positive, far above any bucket index; ~INACTIVE is far
+# below any ~ki).
+INACTIVE = np.int32(0x7FFFFFF)
+
+# Multi-proposal packing: up to 4 signed choices in one i32, one 8-bit
+# two's-complement field per proposal.  A choice is ki (0..63), ~ki
+# (-64..-1) or INACTIVE8 (127, no ki can equal it).
+INACTIVE8 = np.int32(127)
+PACKED_INACTIVE = np.int32(0x7F7F7F7F)  # all four fields INACTIVE8
 
 _M32 = 0xFFFFFFFF
 

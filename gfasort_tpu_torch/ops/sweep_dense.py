@@ -1,11 +1,13 @@
 """Bucket apply: every offset bucket with k <= KMAX in one pass.
 
-Counterpart of ``gfasort_tpu/ops/sweep_dense.py::build_bucket_apply``.
-On a CUDA tensor :func:`bucket_apply` launches the hand-written Hopper
-kernel (``csrc/bucket_apply.cu``); on a CPU tensor it runs
-:func:`bucket_apply_ref`, the plain PyTorch version that mirrors the
-JAX package's ``apply_ref``.  A CUDA tensor never reaches the plain
-version, and a failed launch raises.
+Counterparts of ``gfasort_tpu/ops/sweep_dense.py::build_bucket_apply``
+(the 1D sort) and ``::build_dense_apply_nd`` (the nD layout).  On a CUDA
+tensor :func:`bucket_apply` and :func:`dense_apply_nd` launch the
+hand-written Hopper kernels (``csrc/bucket_apply.cu``,
+``csrc/dense_apply_nd.cu``); on a CPU tensor they run
+:func:`bucket_apply_ref` and :func:`dense_apply_nd_ref`, the plain
+PyTorch versions that mirror the JAX package's ``apply_ref``.  A CUDA
+tensor never reaches a plain version, and a failed launch raises.
 
 Contract (as in the JAX package): no end guards — a ``+k``/``-k``
 choice is in-path by the sampler's construction, and reads past either
@@ -19,10 +21,12 @@ import torch
 
 from .sweep_common import INACTIVE, PACKED_INACTIVE, unpack_choice
 
-__all__ = ["MAX_BUCKETS", "bucket_apply", "bucket_apply_ref", "dense_apply"]
+__all__ = ["MAX_BUCKETS", "MAX_DIMS", "bucket_apply", "bucket_apply_ref",
+           "dense_apply", "dense_apply_nd", "dense_apply_nd_ref"]
 
-MAX_BUCKETS = 64   # the kernel's bucket table (csrc/bucket_apply.cu)
+MAX_BUCKETS = 64   # the kernels' bucket table (csrc/*.cu)
 MAX_WORDS = 4      # P <= 16 proposals
+MAX_DIMS = 8       # layout dimensions the nD kernel is built for
 
 
 def _n_words(proposals: int) -> int:
@@ -135,3 +139,84 @@ def dense_apply(xs, pos, sidx, eta: float, n_dense: int):
     """Dense-only buckets (k = 1..n_dense, ki = k - 1), one proposal."""
     buckets = [(k, k - 1) for k in range(1, n_dense + 1)]
     return bucket_apply(xs, pos, sidx, eta, buckets)
+
+
+def dense_apply_nd_ref(my_pos, words, my_c, eta: float, buckets,
+                       proposals: int = 1):
+    """Plain PyTorch nD bucket apply (the spec of the nD kernel): the
+    Euclidean pair update over the D rows of ``my_c``, with the
+    zero-distance guard on dimension 0 and the r clamp.  ``1 / sqrt``
+    stands for the JAX ``rsqrt``: both factors are correctly rounded."""
+    fill = int(INACTIVE) if proposals == 1 else int(PACKED_INACTIVE)
+    sidxs = _fields(words, proposals)
+    D = my_c.shape[0]
+    one = torch.ones((), dtype=my_pos.dtype, device=my_pos.device)
+    eta_t = torch.full((), eta, dtype=my_pos.dtype, device=my_pos.device)
+    acc = torch.zeros_like(my_c)
+    wacc = torch.zeros_like(my_pos)
+    for k, ki in buckets:
+        for sgn in (+1, -1):
+            kk = sgn * k
+            pos_o = _shift(my_pos, kk, 0.0)
+            c_o = torch.stack([_shift(c, kk, 0.0) for c in my_c])
+            sidxs_o = _fields([_shift(w, kk, fill) for w in words], proposals)
+            w = torch.zeros_like(my_pos)
+            for s, s_o in zip(sidxs, sidxs_o):
+                if sgn > 0:
+                    wb = (s == ki) | (s_o == ~ki)
+                else:
+                    wb = (s == ~ki) | (s_o == ki)
+                w = w + wb.to(my_pos.dtype)
+            d = torch.abs(my_pos - pos_o)
+            valid = d != 0
+            w = torch.where(valid, w, 0.0)
+            safe = torch.where(valid, d, one)
+            mu = torch.minimum(eta_t / safe, one)
+            deltas = my_c - c_o
+            # summed in dimension order, as the JAX ``sum`` does
+            mag_sq = deltas[0] * deltas[0]
+            for dim in range(1, D):
+                mag_sq = mag_sq + deltas[dim] * deltas[dim]
+            zero = mag_sq == 0
+            deltas[0] = torch.where(zero, 1e-9, deltas[0])
+            mag_sq = torch.where(zero, 1e-18, mag_sq)
+            inv = 1.0 / torch.sqrt(mag_sq)
+            mag = mag_sq * inv
+            r = torch.clamp_max(mu * (mag - safe) * 0.5 * inv, 1e30)
+            wr = w * r
+            acc = acc - wr * deltas
+            wacc = wacc + w
+    return acc, wacc
+
+
+def dense_apply_nd(my_pos, words, my_c, eta: float, buckets,
+                   proposals: int = 1):
+    """(acc f32 [D, S], wacc f32 [S]) of the given ``buckets`` for the
+    nD layout: ``my_pos`` f32 [S] (the chosen end's path position),
+    ``my_c`` f32 [D, S] (the chosen end's coordinates), ``words`` as in
+    :func:`bucket_apply`.  CUDA tensors launch the kernel and count one
+    launch in ``dense_apply_nd.launches``; CPU tensors run the plain
+    version."""
+    words = list(words) if isinstance(words, (list, tuple)) else [words]
+    _check(my_pos, my_pos, words, buckets, proposals)
+    if my_c.dtype != torch.float32 or my_c.dim() != 2 or (
+            my_c.shape[1] != my_pos.shape[0]) or my_c.shape[0] < 1:
+        raise ValueError(f"my_c must be float32 [D, {my_pos.shape[0]}], got "
+                         f"{my_c.dtype} {list(my_c.shape)}")
+    if my_c.device != my_pos.device or not my_c.is_contiguous():
+        raise ValueError(f"my_c must be contiguous on {my_pos.device}")
+    if my_pos.device.type == "cpu":
+        return dense_apply_nd_ref(my_pos, words, my_c, eta, buckets, proposals)
+    if my_pos.device.type != "cuda":
+        raise ValueError(f"dense_apply_nd runs on cpu or cuda, not {my_pos.device}")
+    if my_c.shape[0] > MAX_DIMS:
+        raise ValueError(f"the nD kernel is built for at most {MAX_DIMS} "
+                         f"dimensions, got {my_c.shape[0]}")
+    from ..kernels import dense_apply_nd_cuda
+
+    out = dense_apply_nd_cuda(my_pos, words, my_c, eta, buckets, proposals)
+    dense_apply_nd.launches += 1
+    return out
+
+
+dense_apply_nd.launches = 0

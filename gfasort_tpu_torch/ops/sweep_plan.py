@@ -1,12 +1,13 @@
-"""One jax-free plan for the 1D sweep engine.
+"""One jax-free plan for each sweep engine, 1D and nD.
 
-Everything ``gfasort_tpu/ops/sweep.py::build_sweep_runner``
-decides on the host before it traces: the shape-aware knobs, the offset
+Everything ``gfasort_tpu/ops/sweep.py::build_sweep_runner`` (1D) and
+``gfasort_tpu/ops/sweep_nd.py::build_sweep_nd_runner`` (the ``L``
+layout) decide on the host before they trace: the shape-aware knobs, the offset
 set and its rotation phases, the consensus period, the learning-rate
 schedule, the split of each phase's buckets between the hand-written
-bucket-apply kernel (k <= KMAX) and the roll passes (k > KMAX), and the
-sampler's per-bucket Zipf constants.  The policy functions themselves
-are imported from the JAX package, which keeps them free of JAX.
+bucket kernel (k <= KMAX) and the roll passes (k > KMAX), and the
+sampler's per-bucket Zipf constants.  The policy functions are the
+port's copies in :mod:`.sweep_policy`.
 """
 
 from __future__ import annotations
@@ -15,16 +16,15 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from gfasort_tpu.index import PathIndex
-from gfasort_tpu.ops.fastpow import fast_precise_pow, zeta_table
-from gfasort_tpu.ops.schedule import eta_schedule
-from gfasort_tpu.ops.sweep import offset_set
-from gfasort_tpu.ops.sweep_common import (auto_sweep_config,
-                                          fit_consensus_period,
-                                          phase_structure)
-from gfasort_tpu.params import PathSGDParams
+from ..index import PathIndex
+from ..params import LayoutSGDParams, PathSGDParams
+from .fastpow import fast_precise_pow, zeta_table
+from .schedule import eta_schedule
+from .sweep_policy import (auto_sweep_config, fit_consensus_period,
+                           offset_set, phase_structure)
 
-__all__ = ["KMAX", "PhasePlan", "SweepPlan", "make_sweep_plan", "bucket_consts"]
+__all__ = ["KMAX", "PhasePlan", "SweepPlan", "make_sweep_plan",
+           "make_layout_plan", "bucket_consts"]
 
 # Largest offset handed to the bucket-apply kernel: the JAX engine's
 # default ``sweep_dense.kernel_kmax()``.  Bucket order and therefore the
@@ -82,11 +82,12 @@ class SweepPlan:
     offs: np.ndarray            # the full offset set
     rotate: int
     consensus_every: int        # after the rotation round-up and the fit
-    dense_kernel: bool
+    dense_kernel: bool          # any phase hands buckets to the kernel
     phases: tuple               # PhasePlan per rotation phase
     sweep_eta: np.ndarray       # f32 [n_sweeps]
     sweep_cool: np.ndarray      # bool [n_sweeps]
     updates_per_sweep: int
+    dims: int = 1               # coordinates per node end (1 = the 1D sort)
 
     @property
     def n_sweeps(self) -> int:
@@ -127,6 +128,13 @@ class SweepPlan:
                 [len(ph.offs) - b for ph, b in zip(self.phases, kb)])),
         }
 
+    def layout_info(self) -> dict:
+        """The JAX nD runner's ``info`` keys."""
+        info = self.info()
+        return {k: info[k] for k in (
+            "n_sweeps", "updates_per_sweep", "proposals", "active_frac",
+            "n_offsets", "rotate", "consensus_every")}
+
 
 def _phase_plan(offs_p: np.ndarray, params: PathSGDParams, zetas: np.ndarray,
                 dense: bool, proposals: int) -> PhasePlan:
@@ -154,40 +162,38 @@ def _phase_plan(offs_p: np.ndarray, params: PathSGDParams, zetas: np.ndarray,
     )
 
 
-def make_sweep_plan(
-    pidx: PathIndex,
-    params: PathSGDParams,
-    per_octave=None,
-    consensus_every=None,
-    active_frac=None,
-    rotate=None,
-    dense_upto=None,
-    proposals=None,
-) -> SweepPlan:
-    """Resolve the engine's knobs exactly as ``build_sweep_runner`` does
-    (None = the shape-aware default of ``auto_sweep_config``)."""
+def _check_dtype(params) -> None:
     if params.dtype != "float32":
         raise NotImplementedError(
             "the float64 sweep (threefry sampler) is not ported yet "
             "(ROADMAP queue 1: f64/threefry sampler)")
-    S = pidx.total_steps
-    auto = auto_sweep_config(S, pidx.num_nodes)
-    per_octave = auto["per_octave"] if per_octave is None else per_octave
-    consensus_every = (auto["consensus_every"] if consensus_every is None
-                       else consensus_every)
-    active_frac = auto["active_frac"] if active_frac is None else active_frac
-    rotate = auto["rotate"] if rotate is None else rotate
-    dense_upto = auto.get("dense_upto", 8) if dense_upto is None else dense_upto
-    P = max(1, int(auto.get("proposals", 1) if proposals is None else proposals))
 
+
+def _knobs(auto: dict, per_octave, consensus_every, active_frac, rotate,
+           dense_upto, proposals):
+    """Each knob, or its shape-aware default when None."""
+    return (
+        auto["per_octave"] if per_octave is None else per_octave,
+        auto["consensus_every"] if consensus_every is None else consensus_every,
+        auto["active_frac"] if active_frac is None else active_frac,
+        auto["rotate"] if rotate is None else rotate,
+        auto.get("dense_upto", 8) if dense_upto is None else dense_upto,
+        max(1, int(auto.get("proposals", 1) if proposals is None
+                   else proposals)),
+    )
+
+
+def _build_plan(pidx: PathIndex, params, per_octave, consensus_every,
+                active_frac, rotate, dense_upto, P: int, dims: int,
+                phase_gate) -> SweepPlan:
+    """The part both engines share.  ``phase_gate(offs, offs_p)``:
+    whether a phase's buckets with k <= KMAX go to the kernel, from the
+    whole offset set and the phase's own."""
+    S = pidx.total_steps
     max_jump = max(1, min(int(params.space), pidx.max_path_step_count - 1))
     offs = offset_set(max_jump, per_octave, dense_upto)
-    n_dense = int((offs <= 8).sum())
     phase_offsets, rotate, consensus_every = phase_structure(
         offs, rotate, consensus_every)
-    # the JAX engine's dense_kernel_enabled under the forced kernel:
-    # f32 (checked above) and at least two dense buckets
-    dense = n_dense >= 2
 
     updates_per_sweep = P * max(1, int(S * active_frac))
     etas = eta_schedule(
@@ -203,12 +209,62 @@ def make_sweep_plan(
 
     zetas = zeta_table(params.space, params.space_max,
                        params.space_quantization_step, params.theta)
-    phases = tuple(_phase_plan(po, params, zetas, dense, P)
+    phases = tuple(_phase_plan(po, params, zetas, phase_gate(offs, po), P)
                    for po in phase_offsets)
     return SweepPlan(
         proposals=P, active_frac=active_frac,
         per_octave=per_octave, offs=offs, rotate=rotate,
-        consensus_every=consensus_every, dense_kernel=dense, phases=phases,
+        consensus_every=consensus_every,
+        dense_kernel=any(ph.kernel_buckets for ph in phases), phases=phases,
         sweep_eta=sweep_eta, sweep_cool=sweep_cool,
-        updates_per_sweep=updates_per_sweep,
+        updates_per_sweep=updates_per_sweep, dims=dims,
     )
+
+
+def make_sweep_plan(
+    pidx: PathIndex,
+    params: PathSGDParams,
+    per_octave=None,
+    consensus_every=None,
+    active_frac=None,
+    rotate=None,
+    dense_upto=None,
+    proposals=None,
+) -> SweepPlan:
+    """Resolve the 1D engine's knobs exactly as ``build_sweep_runner``
+    does (None = the shape-aware default of ``auto_sweep_config``)."""
+    _check_dtype(params)
+    auto = auto_sweep_config(pidx.total_steps, pidx.num_nodes)
+    *knobs, P = _knobs(auto, per_octave, consensus_every, active_frac,
+                       rotate, dense_upto, proposals)
+    # the JAX engine's dense_kernel_enabled under the forced kernel:
+    # f32 (checked above) and at least two dense buckets in the whole
+    # offset set, decided once for every phase
+    return _build_plan(pidx, params, *knobs, P, 1,
+                       lambda offs, offs_p: int((offs <= 8).sum()) >= 2)
+
+
+def make_layout_plan(
+    pidx: PathIndex,
+    params: LayoutSGDParams,
+    per_octave=None,
+    consensus_every=None,
+    active_frac=None,
+    rotate=None,
+    dense_upto=None,
+    proposals=None,
+) -> SweepPlan:
+    """Resolve the nD layout engine's knobs exactly as
+    ``build_sweep_nd_runner`` does: ``auto_sweep_config(layout=True)``,
+    the proposal clamp to ``max(1, 4 - D)`` choice words, jumps in steps
+    (``params.space``), and the kernel gate decided per phase (at least
+    two offsets <= 8 in the phase's own offset set)."""
+    _check_dtype(params)
+    D = int(params.dimensions)
+    auto = auto_sweep_config(pidx.total_steps, pidx.num_nodes, layout=True)
+    *knobs, P = _knobs(auto, per_octave, consensus_every, active_frac,
+                       rotate, dense_upto, proposals)
+    # the TPU kernel's input-window clamp, kept for parity
+    P = min(P, 4 * max(1, 4 - D))
+    return _build_plan(pidx, params, *knobs, P, D,
+                       lambda offs, offs_p: int((offs_p <= 8).sum()) >= 2)

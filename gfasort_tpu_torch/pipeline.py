@@ -1,42 +1,65 @@
-"""Pipeline orchestration for the port: the ``sYgs`` family of pipelines
-with the PyTorch sweep engine as the device engine of ``Y``.
+"""Pipeline orchestration for the port: the ``sYgs`` / ``L`` family of
+pipelines with the PyTorch sweep engines as the device engines.
 
 The host steps (``s``, ``S``, ``g``, ``u``), the parameter derivation
-and the exact oracle come from ``gfasort_tpu.pipeline`` unchanged.
-Engines:
+and the exact oracle branches are the port's copies of
+``gfasort_tpu/pipeline.py``.  Engines:
 
 * ``"exact"`` — the sequential oracle on the host (C++ if built);
-* ``"sweep"`` — the port's 1D offset-sweep engine on ``device``;
-* ``"auto"`` — the oracle up to 200,000 nodes, the sweep engine above.
+* ``"sweep"`` — the port's offset-sweep engines on ``device``: the 1D
+  engine for ``Y``, the nD layout engine for ``L``;
+* ``"auto"`` — the oracle up to 200,000 nodes, the sweep engines above.
 
-The batched and multi-device engines, and the ``L`` layout on a device
-engine, are not ported yet and raise ``NotImplementedError``.
+The batched and multi-device engines are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import replace
-from typing import Optional
+from dataclasses import dataclass, replace
+from typing import Optional, Tuple
 
-from gfasort_tpu.graph import BidirectedGraph
-from gfasort_tpu.index import PathIndex
-from gfasort_tpu.params import LayoutSGDParams, PathSGDParams, YgsParams
-from gfasort_tpu.pipeline import (AUTO_ORACLE_MAX_NODES, PipelineResult,
-                                  groom_only, layout_step,
-                                  priority_topological_sort_only,
-                                  topological_sort_only, unchop_only,
-                                  validate_pipeline)
-from gfasort_tpu.pipeline import _sgd_order as _host_sgd_order
-from gfasort_tpu.trace import Tracer
+from .algos import (apply_grooming_with_reorder, compact,
+                    exact_odgi_topological_order, groom,
+                    priority_topological_order)
+from .graph import BidirectedGraph
+from .index import PathIndex
+from .io.layout_tsv import Layout
+from .params import LayoutSGDParams, PathSGDParams, YgsParams
+from .trace import Tracer
 
-__all__ = ["sgd_sort_only", "ygs_sort", "run_pipeline", "PipelineResult"]
+__all__ = [
+    "PIPELINE_CHARS", "AUTO_ORACLE_MAX_NODES", "validate_pipeline",
+    "sgd_sort_only", "groom_only", "topological_sort_only",
+    "priority_topological_sort_only", "unchop_only", "layout_step",
+    "ygs_sort", "run_pipeline", "PipelineResult",
+]
+
+PIPELINE_CHARS = "YgsSuL"
+
+# Below this node count the sequential oracle is both fast enough and
+# bit-faithful to the reference contract; above it the device engine
+# wins on throughput.
+AUTO_ORACLE_MAX_NODES = 200_000
 
 _NOT_PORTED = {
     "batched": "the batched engine (ROADMAP queue 1: ops/sgd.py)",
     "sharded": "the multi-device engines (ROADMAP queue 1: parallel/)",
     "sweep-sharded": "the multi-device engines (ROADMAP queue 1: parallel/)",
 }
+
+
+def validate_pipeline(pipeline: str) -> None:
+    """src/bin/gfasort.rs:169-180."""
+    if not pipeline:
+        raise ValueError("Pipeline cannot be empty")
+    for c in pipeline:
+        if c not in PIPELINE_CHARS:
+            raise ValueError(
+                f"Unknown pipeline character '{c}'. Valid: Y (SGD), g (groom), "
+                f"s (topo-sort), S (priority-topo-sort), u (unchop), L (layout)"
+            )
 
 
 def _resolve_engine(engine: str, n_nodes: int) -> str:
@@ -54,7 +77,22 @@ def _sgd_order(graph: BidirectedGraph, params: PathSGDParams, engine: str,
                threads: int, device):
     engine = _resolve_engine(engine, PathIndex.from_graph(graph).num_nodes)
     if engine == "exact":
-        return _host_sgd_order(graph, params, "exact", threads)
+        if threads > 1:
+            # deterministic N-stream emulation of the reference's -t N
+            # (rs:429-432); Python-only (the native oracle is -t 1)
+            from .ops.exact import path_sgd_sort_exact
+
+            return path_sgd_sort_exact(graph, params, nthreads=threads)
+        try:
+            from . import native
+
+            if native.available():
+                return native.path_sgd_sort_native(graph, params)
+        except Exception:
+            pass
+        from .ops.exact import path_sgd_sort_exact
+
+        return path_sgd_sort_exact(graph, params)
     from .ops.sweep import path_sgd_sort_sweep
 
     return path_sgd_sort_sweep(graph, params, device=device)
@@ -63,25 +101,85 @@ def _sgd_order(graph: BidirectedGraph, params: PathSGDParams, engine: str,
 def sgd_sort_only(graph: BidirectedGraph, params: PathSGDParams,
                   engine: str = "auto", threads: int = 1, *,
                   device="cuda") -> None:
-    """'Y' step: SGD order, then renumber."""
+    """'Y' step (src/ygs.rs:195-206): SGD order, then renumber."""
     graph.apply_ordering(_sgd_order(graph, params, engine, threads, device))
 
 
-def _layout(graph: BidirectedGraph, params: LayoutSGDParams, engine: str):
-    engine = _resolve_engine(engine, PathIndex.from_graph(graph).num_nodes)
-    if engine != "exact":
-        raise NotImplementedError(
-            "the L layout on a device engine (ROADMAP queue 1: nD layout, "
-            "ops/sweep_nd.py) is not ported to PyTorch yet")
-    return layout_step(graph, params, "exact")
+def groom_only(graph: BidirectedGraph) -> None:
+    """'g' step (src/ygs.rs:180-192): BFS groom, apply with renumber."""
+    apply_grooming_with_reorder(graph, groom(graph, use_bfs=True), reorder=True)
+
+
+def topological_sort_only(graph: BidirectedGraph) -> None:
+    """'s' step (src/ygs.rs:147-158): heads-only exact ODGI topo sort."""
+    graph.apply_ordering(
+        exact_odgi_topological_order(graph, use_heads=True, use_tails=False)
+    )
+
+
+def priority_topological_sort_only(graph: BidirectedGraph) -> None:
+    """'S' step (src/ygs.rs:163-177): priority = current node_order."""
+    order = priority_topological_order(
+        graph, list(graph.node_order), use_heads=True, reverse_edges=False
+    )
+    graph.apply_ordering(order)
+
+
+def unchop_only(graph: BidirectedGraph) -> None:
+    """'u' step (src/ygs.rs:210-218): compact + sequential renumber."""
+    compact(graph)
+    graph.renumber_nodes_sequentially()
+
+
+def layout_step(
+    graph: BidirectedGraph,
+    params: LayoutSGDParams,
+    engine: str = "auto",
+    stress_samples: int = 10_000,
+    *,
+    device="cuda",
+) -> Tuple[Layout, float]:
+    """'L' step (src/bin/gfasort.rs:265-274): nD layout + sampled stress.
+    The sweep engine runs on ``device``."""
+    pidx = PathIndex.from_graph(graph)
+    eng = _resolve_engine(engine, pidx.num_nodes)
+    if eng == "exact":
+        layout = None
+        try:
+            from . import native
+
+            if native.available():
+                layout = native.path_linear_sgd_layout_native(graph, params, pidx)
+        except Exception:
+            layout = None
+        if layout is None:
+            from .ops.exact import path_linear_sgd_layout_exact
+
+            layout = path_linear_sgd_layout_exact(graph, params, pidx)
+    else:
+        from .ops.sweep_nd import path_linear_sgd_layout_sweep
+
+        layout = path_linear_sgd_layout_sweep(graph, params, pidx, device=device)
+    from .ops.exact import calculate_layout_stress
+
+    stress = calculate_layout_stress(graph, layout, stress_samples)
+    return layout, stress
 
 
 def ygs_sort(graph: BidirectedGraph, params: YgsParams, engine: str = "auto",
              *, device="cuda") -> None:
-    """The Ygs pipeline: SGD, groom (BFS), topological sort."""
+    """The Ygs pipeline (src/ygs.rs:97-143): SGD, groom (BFS), topo."""
     sgd_sort_only(graph, params.path_sgd, engine, device=device)
     groom_only(graph)
     topological_sort_only(graph)
+
+
+@dataclass
+class PipelineResult:
+    graph: BidirectedGraph
+    layout: Optional[Layout] = None
+    layout_stress: Optional[float] = None
+    tracer: object = None
 
 
 def run_pipeline(
@@ -141,7 +239,8 @@ def run_pipeline(
             elif c == "u":
                 unchop_only(graph)
             elif c == "L":
-                layout, stress = _layout(graph, layout_params, engine)
+                layout, stress = layout_step(graph, layout_params, engine,
+                                             device=device)
                 result.layout = layout
                 result.layout_stress = stress
                 if verbose >= 1:

@@ -1,8 +1,8 @@
-"""The port on an NVIDIA GPU: the hand-written bucket-apply kernel against
-its plain version, and the sweep engine on CUDA against the same code on
-the CPU.  Every test needs a GPU (the CUDA kernel has no CPU mode) and
-skips without one.  The file imports no JAX, so it runs where JAX is not
-installed:
+"""The port on an NVIDIA GPU: the hand-written bucket-apply kernels (1D
+and nD) against their plain versions, and the sweep engines on CUDA
+against the same code on the CPU.  Every test needs a GPU (the CUDA
+kernels have no CPU mode) and skips without one.  The file imports
+neither JAX nor the JAX package, so it runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
@@ -14,15 +14,21 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from gfasort_tpu.bench_util import rank_quality, synthetic_path_index  # noqa: E402
-from gfasort_tpu.params import PathSGDParams  # noqa: E402
+from gfasort_tpu_torch.bench_util import (rank_quality,  # noqa: E402
+                                          synthetic_path_index)
 from gfasort_tpu_torch.ops import sweep_common as sc  # noqa: E402
 from gfasort_tpu_torch.ops.keys import fold_in, key_data  # noqa: E402
 from gfasort_tpu_torch.ops.node_sum import build_gather_consensus  # noqa: E402
 from gfasort_tpu_torch.ops.sweep import path_linear_sgd_sweep  # noqa: E402
 from gfasort_tpu_torch.ops.sweep_dense import (bucket_apply,  # noqa: E402
-                                               bucket_apply_ref)
+                                               bucket_apply_ref,
+                                               dense_apply_nd,
+                                               dense_apply_nd_ref)
+from gfasort_tpu_torch.ops.sweep_nd import (  # noqa: E402
+    path_linear_sgd_layout_sweep)
+from gfasort_tpu_torch.ops.exact import calculate_layout_stress_pidx  # noqa: E402
 from gfasort_tpu_torch.ops.sweep_plan import make_sweep_plan  # noqa: E402
+from gfasort_tpu_torch.params import LayoutSGDParams, PathSGDParams  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -47,9 +53,12 @@ def cuda():
 
 
 def _inputs(case, seed=7):
+    return _contract_inputs(*CASES[case], seed)
+
+
+def _contract_inputs(S, buckets, P, seed):
     """Random inputs under the sampler contract: no choice crosses the
     array ends; INACTIVE and foreign bucket indices mixed in."""
-    S, buckets, P = CASES[case]
     rng = np.random.default_rng(seed)
     xs = torch.from_numpy((rng.standard_normal(S) * 10).astype(np.float32))
     pos = torch.from_numpy(np.cumsum(rng.integers(0, 4, S)).astype(np.float32))
@@ -154,3 +163,73 @@ def test_sweep_engine_on_cuda_certifies_against_cpu(cuda):
     q = rank_quality(np.argsort(x_gpu, kind="stable"),
                      np.argsort(x_cpu, kind="stable"))
     assert q["rank_mae_frac"] <= 2e-3 and q["spearman"] >= 0.999, q
+
+
+ND_CASES = {
+    "d2_p1_dense": (7000, 2, [(k, k - 1) for k in range(1, 9)], 1),
+    "d2_p8_phase": (70_001, 2, PHASE, 8),
+    "d3_p4_phase": (30_000, 3, PHASE, 4),
+    "d3_p1_mid": (70_000, 3, [(1, 0), (5, 4), (181, 9), (1449, 11),
+                              (8192, 13)], 1),
+    "d8_p12_past_end": (300, 8, [(1, 0), (512, 1)], 12),
+}
+
+
+def _nd_inputs(case, seed=5):
+    """nD inputs under the sampler contract; coincident coordinates and
+    repeated positions hit the zero guards."""
+    S, D, buckets, P = ND_CASES[case]
+    _, pos, words, eta, _, _ = _contract_inputs(S, buckets, P, seed)
+    rng = np.random.default_rng(seed + 1)
+    my_c = rng.integers(-3, 4, (D, S)).astype(np.float32)
+    my_c[:, ::3] += (rng.standard_normal((D, len(my_c[0, ::3]))) * 50).astype(
+        np.float32)
+    return pos, words, torch.from_numpy(my_c), eta, buckets, P
+
+
+@pytest.mark.parametrize("case", sorted(ND_CASES))
+def test_nd_kernel_matches_plain_version(cuda, case):
+    pos, words, my_c, eta, buckets, P = _nd_inputs(case)
+    pos, my_c = pos.to(cuda), my_c.to(cuda)
+    words = [w.to(cuda) for w in words]
+    before = dense_apply_nd.launches
+    acc_k, w_k = dense_apply_nd(pos, words, my_c, eta, buckets, P)
+    acc_r, w_r = dense_apply_nd_ref(pos, words, my_c, eta, buckets, P)
+    torch.cuda.synchronize()
+    assert dense_apply_nd.launches == before + 1
+    assert acc_k.shape == my_c.shape and acc_k.device.type == "cuda"
+    assert torch.equal(w_k, w_r)
+    torch.testing.assert_close(acc_k, acc_r, rtol=DSUM_RTOL, atol=DSUM_ATOL)
+    # the card's plain version against the CPU's, same inputs
+    acc_c, w_c = dense_apply_nd(pos.cpu(), [w.cpu() for w in words],
+                                my_c.cpu(), eta, buckets, P)
+    assert torch.equal(w_k.cpu(), w_c)
+    torch.testing.assert_close(acc_k.cpu(), acc_c, rtol=DSUM_RTOL,
+                               atol=DSUM_ATOL)
+
+
+def test_nd_kernel_refuses_too_many_dims(cuda):
+    pos, words, my_c, eta, buckets, P = _nd_inputs("d2_p1_dense")
+    wide = torch.zeros((9, pos.shape[0]), device=cuda)
+    with pytest.raises(ValueError, match="at most 8"):
+        dense_apply_nd(pos.to(cuda), [w.to(cuda) for w in words], wide, eta,
+                       buckets, P)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_layout_engine_on_cuda_certifies_against_cpu(cuda, dims):
+    pidx = synthetic_path_index(3000, 2, 6000, seed=3)
+    lp = replace(LayoutSGDParams().derive_from_graph(pidx, dims),
+                 dtype="float32", pow_mode="fast", iter_max=5)
+    kw = dict(proposals=8, per_octave=3, dense_upto=4, rotate=2,
+              consensus_every=4, active_frac=1.0)
+    before = dense_apply_nd.launches
+    lay_gpu = path_linear_sgd_layout_sweep(None, lp, pidx, device=cuda, **kw)
+    assert dense_apply_nd.launches > before
+    lay_gpu2 = path_linear_sgd_layout_sweep(None, lp, pidx, device=cuda, **kw)
+    np.testing.assert_array_equal(lay_gpu.coords, lay_gpu2.coords)
+    lay_cpu = path_linear_sgd_layout_sweep(None, lp, pidx, device="cpu", **kw)
+    assert np.isfinite(lay_gpu.coords).all()
+    s_gpu = calculate_layout_stress_pidx(pidx, lay_gpu, 3000)
+    s_cpu = calculate_layout_stress_pidx(pidx, lay_cpu, 3000)
+    assert s_gpu / s_cpu <= 1.5, (s_gpu, s_cpu)

@@ -76,3 +76,34 @@ def test_consensus_is_deterministic():
     widths = [ix.shape[1] for ix in gt.class_idx]
     assert widths == sorted(widths) and widths[-1] >= 700
     assert all(w & (w - 1) == 0 for w in widths)
+
+
+@pytest.mark.parametrize("rows", [4, 6])
+def test_multi_row_consensus_matches_rows_and_jax_scatter(rows):
+    """The layout engine's [R, S] call (R = 2D rows): each row as the 1D
+    call computes it, and within f32 reassociation of the JAX nD
+    runner's scatter-add consensus (gfasort_tpu/ops/sweep_nd.py)."""
+    rng = np.random.default_rng(rows)
+    N, S = 2000, 9000
+    step_node = _step_map(rng, N, S, hub_degree=200)
+    cs = (rng.standard_normal((rows, S)) * 1e4).astype(np.float32)
+    init = (rng.standard_normal((rows, N)) * 1e4).astype(np.float32)
+
+    gt = build_gather_consensus(step_node, N, "cpu")
+    cs_t, xn_t = gt(torch.from_numpy(cs))
+    node_t = gt.to_node_order(xn_t, torch.from_numpy(init)).numpy()
+    assert cs_t.shape == (rows, S) and node_t.shape == (rows, N)
+    for r in range(rows):
+        xs_r, xn_r = gt(torch.from_numpy(cs[r]))
+        assert torch.equal(cs_t[r], xs_r) and torch.equal(xn_t[r], xn_r)
+
+    cnt = np.bincount(step_node, minlength=N)
+    inv_cnt = jnp.asarray((1.0 / np.maximum(cnt, 1)).astype(np.float32))
+    node_j = np.stack([np.asarray(
+        jnp.zeros((N,), jnp.float32).at[step_node].add(cs[r]) * inv_cnt)
+        for r in range(rows)])
+    has = cnt > 0
+    np.testing.assert_allclose(node_t[:, has], node_j[:, has], rtol=1e-5,
+                               atol=1e-2)
+    np.testing.assert_array_equal(node_t[:, ~has], init[:, ~has])
+    np.testing.assert_array_equal(cs_t.numpy(), node_t[:, step_node])

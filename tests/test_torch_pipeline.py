@@ -1,21 +1,23 @@
-"""The port's pipeline and CLI: path hashes preserved through sYgs with
-the sweep engine, engine dispatch, and no JAX import anywhere in the
-port's path."""
+"""The port's pipeline and CLI: path hashes preserved through sYgs and L
+with the sweep engines, engine dispatch, and no import of JAX or of the
+JAX package anywhere in the port or its smoke script."""
 
 import pathlib
 import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from gfasort_tpu.io import gfa  # noqa: E402
+from gfasort_tpu.io import gfa as jax_gfa  # noqa: E402
 from gfasort_tpu.pipeline import run_pipeline as jax_run_pipeline  # noqa: E402
-from gfasort_tpu.tools.make_synthetic_gfa import synthetic_gfa_lines  # noqa: E402
 from gfasort_tpu_torch import cli  # noqa: E402
+from gfasort_tpu_torch.io import gfa  # noqa: E402
 from gfasort_tpu_torch.pipeline import run_pipeline  # noqa: E402
+from gfasort_tpu_torch.tools.make_synthetic_gfa import synthetic_gfa_lines  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -38,11 +40,11 @@ def test_sygs_sweep_engine_preserves_path_hashes():
 
 def test_auto_engine_small_graph_matches_jax_pipeline():
     """At <= 200k nodes 'auto' runs the host oracle in both packages."""
-    g1, _ = _graph(seed=6)
-    g2, _ = _graph(seed=6)
+    g1, text = _graph(seed=6)
+    g2 = jax_gfa.parse_gfa_numeric(text)
     run_pipeline(g1, "sYgs", iter_max=3, device="cpu")
     jax_run_pipeline(g2, "sYgs", iter_max=3)
-    assert gfa.write_gfa(g1) == gfa.write_gfa(g2)
+    assert gfa.write_gfa(g1) == jax_gfa.write_gfa(g2)
 
 
 @pytest.mark.parametrize("engine", ["batched", "sharded", "sweep-sharded"])
@@ -53,11 +55,24 @@ def test_unported_engines_raise(engine):
 
 
 def test_layout_exact_works_and_device_layout_raises():
+    """Both engines of ``L`` run: the oracle, and the device (nD sweep)
+    engine here on the CPU; neither changes the graph.  Only the
+    unported engines raise."""
     g, _ = _graph(nodes=300, steps=300)
+    hashes = g.compute_all_path_hashes()
     res = run_pipeline(g, "L", layout_iter=2, engine="exact", device="cpu")
     assert res.layout is not None and res.layout_stress >= 0
+    for dims in (2, 3):
+        res = run_pipeline(g, "L", layout_iter=2, engine="sweep",
+                           dimensions=dims, device="cpu")
+        assert res.layout.dimensions == dims
+        assert res.layout.num_nodes == g.node_count()
+        assert np.isfinite(res.layout.coords).all()
+        assert np.isfinite(res.layout_stress) and res.layout_stress > 0
+        assert g.compute_all_path_hashes() == hashes
+    assert [e.name for e in res.tracer.events] == ["3D layout"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_pipeline(g, "L", layout_iter=2, engine="sweep", device="cpu")
+        run_pipeline(g, "L", layout_iter=2, engine="batched", device="cpu")
 
 
 def test_cli_sweep_on_cpu_writes_sorted_gfa(tmp_path):
@@ -83,27 +98,39 @@ def test_sweep_on_cuda_without_cuda_raises(tmp_path):
 
 
 def test_port_never_imports_jax():
+    """Every module of the port and the smoke script, then the 1D sweep,
+    ``sYgsL`` and the native oracle on the CPU: neither ``jax`` nor any
+    module of the JAX package ``gfasort_tpu`` is ever imported."""
     script = textwrap.dedent("""
-        import sys
+        import importlib, pkgutil, sys
         from dataclasses import replace
         import gfasort_tpu_torch
-        from gfasort_tpu_torch import cli, kernels, pipeline
+        for m in pkgutil.walk_packages(gfasort_tpu_torch.__path__,
+                                       "gfasort_tpu_torch."):
+            importlib.import_module(m.name)
+        import chip_smoke
+        from gfasort_tpu_torch import native, pipeline
         from gfasort_tpu_torch.ops import sweep
-        from gfasort_tpu.bench_util import synthetic_path_index
-        from gfasort_tpu.io import gfa
-        from gfasort_tpu.params import PathSGDParams
-        from gfasort_tpu.tools.make_synthetic_gfa import synthetic_gfa_lines
+        from gfasort_tpu_torch.bench_util import synthetic_path_index
+        from gfasort_tpu_torch.io import gfa
+        from gfasort_tpu_torch.params import PathSGDParams
+        from gfasort_tpu_torch.tools.make_synthetic_gfa import synthetic_gfa_lines
 
         pidx = synthetic_path_index(1000, 2, 1500, seed=1)
         p = replace(PathSGDParams().derive_from_graph(pidx), iter_max=3)
         x = sweep.path_linear_sgd_sweep(None, p, pidx, device="cpu",
                                         proposals=12, rotate=2)
         assert x.shape == (1000,)
+        assert native.path_linear_sgd_native(None, p, pidx).shape == (1000,)
         g = gfa.parse_gfa_numeric("\\n".join(synthetic_gfa_lines(500, 2, 500)))
-        pipeline.run_pipeline(g, "sYgs", iter_max=3, engine="sweep", device="cpu")
-        print("jax" in sys.modules)
+        pipeline.run_pipeline(g, "sYgsL", iter_max=3, layout_iter=2,
+                              engine="sweep", device="cpu")
+        bad = sorted(k for k in sys.modules if k == "jax"
+                     or k.startswith("jax.") or k == "gfasort_tpu"
+                     or k.startswith("gfasort_tpu."))
+        print(bad)
     """)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "False"
+    assert out.stdout.strip() == "[]"
