@@ -17,27 +17,39 @@ Phases, in order; any failed check raises and the script exits non-zero:
                 phase-1 kernel bucket lists: D = 2 with P = 8 (2 words),
                 D = 3 with P = 4 (1 word) and D = 2 with P = 1: wacc
                 exact, acc within rtol 2e-5 / atol 1e-4; both timed.
-4. main       — write the bench-shape GFA (1M nodes, 16 paths x 250k
+4. sweep_apply — the fused sweep apply (all buckets of an offset set in
+                one pass, rank/cnt guards, the combine) on the bench
+                index at S = 4M with its real rank and cnt, over the full
+                offset sets of the bench plan's phases 0 and 1, P = 1:
+                one launch per phase counted, each held within rtol 2e-5
+                / atol 1e-4 of its plain version; kernel, plain version
+                and the port's split apply of the same offsets (bucket
+                kernel + roll passes + combine) timed.
+5. shift_probe — both shift-sum kernels (global reads, shared-memory
+                halo) bit-identical to their plain version, conv1d within
+                atol 1e-4, all timed (``tools/dense_probe.run``) at
+                S = 4M and at S = 64M, past the 50 MB L2.
+6. main       — write the bench-shape GFA (1M nodes, 16 paths x 250k
                 steps) and run ``python -m gfasort_tpu_torch -p sYgs``
                 (engine auto -> the sweep engine, N > 200k) through
                 ``cli.main``; the 1D kernel's launch counter must move,
                 every path hash, the node and the edge count must be
                 preserved.  A direct engine run on the same graph checks
                 that the positions are finite.
-5. layout     — ``-p L --dimensions 2`` on the same GFA through
+7. layout     — ``-p L --dimensions 2`` on the same GFA through
                 ``cli.main`` (the nD sweep engine): the nD kernel launches
                 once per executed sweep, the TSV holds finite coordinates
                 for both ends of every node, the path hashes and the node
                 and edge counts are unchanged.
-6. layout_parts — the same 2D layout taken apart: the host set-up (path
+8. layout_parts — the same 2D layout taken apart: the host set-up (path
                 index, initial coordinates, plan, consensus tables,
                 upload, each on the host clock) and one rotation of sweeps
                 with CUDA events around the sampler, the kernel, the roll
                 passes and the combine, and one consensus run.
-7. quality    — the port's 1D sweep against the sequential oracle on the
+9. quality    — the port's 1D sweep against the sequential oracle on the
                 100k-node certificate workload: rank-MAE/N <= 2e-3 and
                 Spearman >= 0.999.
-8. quality_nd — the port's layout against the C++ oracle on the 20k-node
+10. quality_nd — the port's layout against the C++ oracle on the 20k-node
                 layout certificate, 2D and 3D, with the bench's nD knobs:
                 stress ratio <= 1.5.
 
@@ -63,6 +75,8 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+from gfasort_tpu_torch.bench_util import cuda_ms
+
 S_BENCH = (1_000_000, 16, 250_000)       # nodes, paths, steps per path
 CERT = dict(n_nodes=100_000, n_paths=4, steps_per_path=100_000, seed=7,
             iter_max=30)
@@ -72,6 +86,9 @@ RANK_MAE_MAX = 2e-3
 SPEARMAN_MIN = 0.999
 STRESS_RATIO_MAX = 1.5
 DSUM_RTOL, DSUM_ATOL = 2e-5, 1e-4
+# shift-sum probe sizes: multiples of the TPU probes' 64k block; the
+# larger one exceeds the card's 50 MB L2 cache
+SHIFT_SIZES = (1 << 22, 1 << 26)
 # the bench's nD knobs (ce 48, rotate 12, frac 1.0, dense_upto 4, P 8)
 ND_CERT_KW = dict(consensus_every=48, rotate=12, active_frac=1.0,
                   dense_upto=4, proposals=8)
@@ -112,6 +129,14 @@ def ops_nd(D: int, P: int, n_buckets: int) -> int:
     return 2 * n_buckets * (P + 5 * D + 13)
 
 
+def ops_fused(K: int) -> int:
+    """f32 arithmetic ops per padded step of the fused spec: per bucket
+    and sign |pos - pos_o|, eta / safe, min, xs - xs_o, mag - safe,
+    mu * (.), / 2, / mag, * dx, -w * r (10); per bucket the two pair
+    sums and the two accumulations (4); then max, divide and add (3)."""
+    return 24 * K + 3
+
+
 def card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -124,22 +149,6 @@ def say(phase: str, card_line: str | None = None, **nums) -> None:
     if card_line is not None:
         rec["card"] = card_line
     print(json.dumps(rec), flush=True)
-
-
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` runs (CUDA
-    events, after two warm-up runs)."""
-    for _ in range(2):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def contract_choices(rng, S, buckets, P):
@@ -251,17 +260,126 @@ def phase_kernel_nd(plans, S, pos_np, card_line):
 
 
 def reset_launches() -> None:
-    from gfasort_tpu_torch.ops import sweep_dense
+    from gfasort_tpu_torch.ops import shift_sum, sweep_dense, sweep_fused
 
     sweep_dense.bucket_apply.launches = 0
     sweep_dense.dense_apply_nd.launches = 0
+    sweep_fused.sweep_apply.launches = 0
+    for v in shift_sum.VARIANTS:
+        shift_sum.shift_sum.launches[v] = 0
 
 
 def read_launches() -> dict:
-    from gfasort_tpu_torch.ops import sweep_dense
+    from gfasort_tpu_torch.ops import shift_sum, sweep_dense, sweep_fused
 
     return {"bucket_apply": sweep_dense.bucket_apply.launches,
-            "dense_apply_nd": sweep_dense.dense_apply_nd.launches}
+            "dense_apply_nd": sweep_dense.dense_apply_nd.launches,
+            "sweep_apply": sweep_fused.sweep_apply.launches,
+            **{f"shift_sum_{v}": n
+               for v, n in shift_sum.shift_sum.launches.items()}}
+
+
+def phase_sweep_apply(plan, pidx, card_line):
+    """The fused apply over the full offset sets of plan phases 0 and 1
+    (P = 1, the index's real rank and cnt): one launch per phase counted,
+    each held against its plain version, then timed beside the plain
+    version and the port's split apply of the same offsets."""
+    import torch.nn.functional as F
+
+    from gfasort_tpu_torch.ops.sweep import apply_choices
+    from gfasort_tpu_torch.ops.sweep_fused import (build_sweep_apply,
+                                                   pad_sidx, pad_state,
+                                                   pad_static,
+                                                   sweep_apply_ref)
+
+    dev = torch.device("cuda")
+    S = pidx.total_steps
+    rng = np.random.default_rng(2)
+    xs = torch.from_numpy((rng.standard_normal(S) * 100).astype(np.float32)).to(dev)
+    pos_np = pidx.step_pos.astype(np.float32)
+    pos = torch.from_numpy(pos_np).to(dev)
+    rank = torch.from_numpy(pidx.step_rank.astype(np.int32)).to(dev)
+    cnt = torch.from_numpy(pidx.step_count_of_step.astype(np.int32)).to(dev)
+    eta = float(plan.sweep_eta[0])
+    cases = []
+    for ph_i in (0, 1):
+        phase = plan.phases[ph_i]
+        buckets = [(int(k), ki) for ki, k in enumerate(phase.offs)]
+        sidx = contract_choices(rng, S, buckets, 1)[0].to(dev)
+        apply_fn, lay = build_sweep_apply(phase.offs, S)
+        tail = (0, lay["S_pad"] - S)
+        args = (pad_state(xs, lay),
+                torch.from_numpy(pad_static(pos_np, lay)).to(dev),
+                pad_sidx(sidx, lay), F.pad(rank, tail), F.pad(cnt, tail), eta)
+        cases.append((ph_i, phase, sidx, apply_fn, lay, args))
+
+    # the kernel's own path: one fused apply per plan phase
+    reset_launches()
+    outs = [apply_fn(*args) for _, _, _, apply_fn, _, args in cases]
+    torch.cuda.synchronize()
+    launches = read_launches()["sweep_apply"]
+    if launches != len(cases):
+        raise AssertionError(f"{launches} fused apply launches, expected "
+                             f"{len(cases)}")
+
+    results = {}
+    for (ph_i, phase, sidx, apply_fn, lay, args), out in zip(cases, outs):
+        offs = tuple(int(k) for k in phase.offs)
+        flat = [a.reshape(-1) for a in args[:5]]
+        ref = sweep_apply_ref(*flat, eta, offs, lay["H"])
+        torch.cuda.synchronize()
+        if out.shape != (lay["S_pad"],) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"fused apply output not finite [S_pad] "
+                                 f"(phase {ph_i})")
+        err = (out - ref).abs()
+        bound = DSUM_ATOL + DSUM_RTOL * ref.abs()
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"fused apply off by {float(err.max())} "
+                                 f"(phase {ph_i})")
+        ms = cuda_ms(lambda: apply_fn(*args))
+        plain_ms = cuda_ms(lambda: sweep_apply_ref(*flat, eta, offs,
+                                                   lay["H"]), 3)
+        split_ms = cuda_ms(lambda: apply_choices(xs, pos, [sidx], phase,
+                                                 eta, 1))
+        S_pad, L = lay["S_pad"], lay["L"]
+        # each input read once (xs, pos, sidx padded to L; rank, cnt),
+        # the output written once
+        bms, by = bound_ms(S_pad, (3 * L + 2 * S_pad) / S_pad, 1,
+                           ops_fused(len(offs)))
+        rec = dict(S=S, S_pad=S_pad, H=lay["H"], K=len(offs), offs=list(offs),
+                   kernel_buckets=len(phase.kernel_buckets),
+                   roll_buckets=len(phase.roll_buckets),
+                   max_abs_err=float(err.max()),
+                   bit_identical=bool(torch.equal(out, ref)),
+                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   split_ms=split_ms)
+        results[ph_i] = rec
+        say("sweep_apply", card_line, phase_of_plan=ph_i, **rec)
+        del ref, err, bound
+    del cases, outs
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+def phase_shift_probe(card_line):
+    """Both shift-sum kernels checked and timed by the probe tool at each
+    of ``SHIFT_SIZES``; the launches are those of the first size's
+    checked calls."""
+    from gfasort_tpu_torch.tools import dense_probe
+
+    results = {}
+    for S in SHIFT_SIZES:
+        reset_launches()
+        res = dense_probe.run(S, "cuda")
+        bms, by = bound_ms(S, 1, 1, 2 * res["halo"])
+        res.update(bound_ms=bms, bound_by=by)
+        if any(n < 1 for n in res["launches"].values()):
+            raise AssertionError(f"a shift-sum kernel never launched: "
+                                 f"{res['launches']}")
+        results[S] = res
+        say("shift_probe", card_line, **res)
+        torch.cuda.empty_cache()
+    return results
 
 
 def phase_main(gfa_in, tmp, card_line):
@@ -567,18 +685,41 @@ def phase_quality_nd(card_line):
             raise AssertionError(f"layout certificate failed: {q}")
 
 
-def kernel_entry(name, source, replaces, launches, cases, main_case):
-    """One entry of the kernels line: the main path's launch count and
-    the main-path case's times and bound; the worst error of all cases."""
-    return {
+def kernel_entry(name, source, replaces, launches, cases, main_case,
+                 library_ms=None, note=None):
+    """One entry of the kernels line: the path's launch count and the
+    main case's times and bound; the worst error of all cases.
+    ``library_ms`` stays None where no single PyTorch call computes the
+    function."""
+    entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        # no single PyTorch call computes either function
-        "library_ms": None,
+        "library_ms": library_ms,
     }
+    if note:
+        entry["note"] = note
+    return entry
+
+
+def shift_entry(variant, probe):
+    """The kernels-line entry of one shift-sum kernel, at the first
+    probe size."""
+    res = probe[SHIFT_SIZES[0]]
+    case = dict(res["variants"][variant], plain_ms=res["plain_ms"],
+                bound_ms=res["bound_ms"], bound_by=res["bound_by"])
+    return kernel_entry(
+        f"shift_sum_{variant}", "gfasort_tpu_torch/csrc/shift_sum.cu",
+        "scratch/dense_probe.py:81, scratch/dense_probe.py:116, "
+        "scratch/dense_probe.py:152",
+        res["launches"][variant],
+        {S: r["variants"][variant] for S, r in probe.items()}, case,
+        library_ms=res["library_ms"],
+        note="no main path runs it: launches counted in the shift_probe "
+             "phase's checked calls; library_ms is conv1d with a ones "
+             "filter, TF32 off")
 
 
 def main() -> int:
@@ -592,6 +733,7 @@ def main() -> int:
     from gfasort_tpu_torch.params import LayoutSGDParams, PathSGDParams
     from gfasort_tpu_torch.tools.make_synthetic_gfa import write_synthetic_gfa
 
+    t_start = time.perf_counter()
     card_line = card()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
@@ -613,7 +755,9 @@ def main() -> int:
         for D in (2, 3)}
     kres_nd = phase_kernel_nd(nd_plans, bench.total_steps,
                               bench.step_pos.astype(np.float32), card_line)
+    sres, sweep_launches = phase_sweep_apply(bench_plan, bench, card_line)
     del bench
+    probe = phase_shift_probe(card_line)
 
     n, paths, steps = S_BENCH
     with tempfile.TemporaryDirectory() as tmp:
@@ -632,6 +776,7 @@ def main() -> int:
                  or k == "gfasort_tpu" or k.startswith("gfasort_tpu."))
     if bad:
         raise AssertionError(f"the port imported {bad}")
+    say("done", card_line, seconds=time.perf_counter() - t_start)
     print(card_line, flush=True)
     print(json.dumps({"kernels": [
         kernel_entry("bucket_apply", "gfasort_tpu_torch/csrc/bucket_apply.cu",
@@ -642,6 +787,13 @@ def main() -> int:
                      "gfasort_tpu/ops/sweep_dense.py:405",
                      launches_nd["dense_apply_nd"], kres_nd,
                      kres_nd[(2, 8, 0)]),
+        kernel_entry("sweep_apply", "gfasort_tpu_torch/csrc/sweep_apply.cu",
+                     "gfasort_tpu/ops/sweep_pallas.py:52", sweep_launches,
+                     sres, sres[0],
+                     note="no main path runs it: launches counted in the "
+                          "sweep_apply phase, one per plan phase"),
+        shift_entry("global", probe),
+        shift_entry("smem", probe),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 ``synthetic_path_index`` and ``rank_quality`` are copied unchanged from
 ``gfasort_tpu/bench_util.py``; ``layout_quality_vs_oracle`` is that
-module's layout certificate with the port's sweep engine on ``device``.
+module's layout certificate with the port's sweep engine on ``device``;
+``cuda_ms`` times device work with CUDA events.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import numpy as np
 
 from .index import PathIndex
 
-__all__ = ["synthetic_path_index", "rank_quality", "layout_quality_vs_oracle"]
+__all__ = ["synthetic_path_index", "rank_quality", "layout_quality_vs_oracle",
+           "cuda_ms"]
 
 
 def synthetic_path_index(
@@ -126,3 +128,21 @@ def layout_quality_vs_oracle(
         "n_nodes": n_nodes,
         "dims": dims,
     }
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` runs (CUDA
+    events, after two warm-up runs)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

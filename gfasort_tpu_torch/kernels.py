@@ -22,7 +22,7 @@ import tempfile
 import torch
 
 __all__ = ["NVCC_FLAGS", "nvcc_path", "build", "library", "bucket_apply_cuda",
-           "dense_apply_nd_cuda"]
+           "dense_apply_nd_cuda", "sweep_apply_cuda", "shift_sum_cuda"]
 
 _HERE = pathlib.Path(__file__).parent
 _CSRC = _HERE / "csrc"
@@ -115,6 +115,13 @@ def library() -> ctypes.CDLL:
         ctypes.POINTER(ci), ctypes.POINTER(ci), ci, vp, vp, vp,
     ]
     lib.gfasort_dense_apply_nd.restype = ci
+    lib.gfasort_sweep_apply.argtypes = [
+        ci, vp, vp, vp, vp, vp, ci, ci, ctypes.c_float, ctypes.POINTER(ci),
+        ci, vp, vp,
+    ]
+    lib.gfasort_sweep_apply.restype = ci
+    lib.gfasort_shift_sum.argtypes = [ci, vp, vp, ci, ci, ci, vp]
+    lib.gfasort_shift_sum.restype = ci
     return lib
 
 
@@ -160,3 +167,36 @@ def dense_apply_nd_cuda(my_pos, words, my_c, eta: float, buckets,
         raise RuntimeError(
             f"dense_apply_nd kernel launch failed: CUDA error {err}")
     return acc, wacc
+
+
+def sweep_apply_cuda(xs_pad, pos_pad, sidx_pad, rank, cnt, eta: float, offs,
+                     H: int):
+    """Launch the fused sweep-apply kernel on the current stream.  Inputs
+    are validated by the caller (``ops/sweep_fused.sweep_apply``)."""
+    lib = library()
+    S_pad = rank.shape[0]
+    out = torch.empty(S_pad, dtype=torch.float32, device=xs_pad.device)
+    ks = (ctypes.c_int * len(offs))(*offs)
+    stream = torch.cuda.current_stream(xs_pad.device).cuda_stream
+    err = lib.gfasort_sweep_apply(
+        xs_pad.device.index, xs_pad.data_ptr(), pos_pad.data_ptr(),
+        sidx_pad.data_ptr(), rank.data_ptr(), cnt.data_ptr(), S_pad, H,
+        float(eta), ks, len(offs), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"sweep_apply kernel launch failed: CUDA error {err}")
+    return out
+
+
+def shift_sum_cuda(x, halo: int, variant: str):
+    """Launch a shift-sum kernel (``variant`` "global" or "smem") on the
+    current stream.  Inputs are validated by the caller
+    (``ops/shift_sum.shift_sum``)."""
+    lib = library()
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.gfasort_shift_sum(
+        x.device.index, x.data_ptr(), out.data_ptr(), x.shape[0], halo,
+        1 if variant == "smem" else 0, stream)
+    if err != 0:
+        raise RuntimeError(f"shift_sum kernel launch failed: CUDA error {err}")
+    return out

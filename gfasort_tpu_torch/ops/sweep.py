@@ -32,8 +32,8 @@ from .sweep_dense import bucket_apply
 from .sweep_plan import PhasePlan, make_sweep_plan
 from .sweep_policy import SweepResult
 
-__all__ = ["build_sweep_runner", "path_linear_sgd_sweep", "path_sgd_sort_sweep",
-           "sweep_once"]
+__all__ = ["apply_choices", "build_sweep_runner", "path_linear_sgd_sweep",
+           "path_sgd_sort_sweep", "sweep_once"]
 
 
 def _roll_half(xs, pos, eta_t, shift: int, pairs, iota):
@@ -70,6 +70,16 @@ def sweep_once(xs, pos, rank, cnt, phase: PhasePlan, consts: SamplerConsts,
     S = xs.shape[0]
     rng = (sweep_rng(w, S, xs.device) for w in key_words)
     sidxs = sample_blocks(consts, rng, cooling, rank, cnt, active_frac, snap)
+    return apply_choices(xs, pos, sidxs, phase, eta, proposals)
+
+
+def apply_choices(xs, pos, sidxs, phase: PhasePlan, eta: float,
+                  proposals: int):
+    """The pair updates of one sweep for the given choice arrays (one
+    int32 [S] per proposal) and the combine; returns the new xs.  The
+    bucket-apply kernel serves the phase's buckets with k <= KMAX, roll
+    passes the rest."""
+    S = xs.shape[0]
     if phase.kernel_buckets:
         words = sidxs[:1] if proposals == 1 else pack_choices_words(sidxs)
         dsum, csum = bucket_apply(xs, pos, words, eta, phase.kernel_buckets,

@@ -1,6 +1,7 @@
-"""The port on an NVIDIA GPU: the hand-written bucket-apply kernels (1D
-and nD) against their plain versions, and the sweep engines on CUDA
-against the same code on the CPU.  Every test needs a GPU (the CUDA
+"""The port on an NVIDIA GPU: the hand-written kernels (the 1D and nD
+bucket apply, the fused sweep apply, the two shift sums) against their
+plain versions, and the sweep engines on CUDA against the same code on
+the CPU.  Every test needs a GPU (the CUDA
 kernels have no CPU mode) and skips without one.  The file imports
 neither JAX nor the JAX package, so it runs where JAX is not installed:
 
@@ -27,6 +28,10 @@ from gfasort_tpu_torch.ops.sweep_dense import (bucket_apply,  # noqa: E402
 from gfasort_tpu_torch.ops.sweep_nd import (  # noqa: E402
     path_linear_sgd_layout_sweep)
 from gfasort_tpu_torch.ops.exact import calculate_layout_stress_pidx  # noqa: E402
+from gfasort_tpu_torch.ops import sweep_fused as sf  # noqa: E402
+from gfasort_tpu_torch.ops.shift_sum import (VARIANTS, shift_sum,  # noqa: E402
+                                             shift_sum_ref)
+from gfasort_tpu_torch.tools import dense_probe  # noqa: E402
 from gfasort_tpu_torch.ops.sweep_plan import make_sweep_plan  # noqa: E402
 from gfasort_tpu_torch.params import LayoutSGDParams, PathSGDParams  # noqa: E402
 
@@ -233,3 +238,76 @@ def test_layout_engine_on_cuda_certifies_against_cpu(cuda, dims):
     s_gpu = calculate_layout_stress_pidx(pidx, lay_gpu, 3000)
     s_cpu = calculate_layout_stress_pidx(pidx, lay_cpu, 3000)
     assert s_gpu / s_cpu <= 1.5, (s_gpu, s_cpu)
+
+
+FUSED_CASES = {
+    # the JAX kernel test's offsets, two paths
+    "k_offs": (3000, [1, 2, 3, 4, 6, 9, 13, 19, 40, 100, 300], 1800, 1024),
+    # large offsets, unaligned S, many paths
+    "large": (70_001, [1, 2, 3, 5, 181, 1449, 8192, 30_000], 9000, 64 * 1024),
+    # the kernel's full offset table
+    "k64": (20_000, list(range(1, 65)), 5000, 4096),
+}
+
+
+def _fused_inputs(case, seed=4):
+    """Padded inputs on the CPU: paths of ``path_len`` steps (the last
+    one shorter), choices of every bucket and sign plus INACTIVE, with
+    repeated positions and equal xs hitting both zero guards."""
+    S, offs, path_len, tile = FUSED_CASES[case]
+    rng = np.random.default_rng(seed)
+    apply_fn, lay = sf.build_sweep_apply(offs, S, tile=tile)
+    rank = (np.arange(S) % path_len).astype(np.int32)
+    cnt = np.minimum(path_len, S - (np.arange(S) // path_len) * path_len)
+    xs = (rng.standard_normal(S) * 100).astype(np.float32)
+    xs[5::7] = xs[6::7][:len(xs[5::7])]
+    pos = np.cumsum(rng.integers(0, 4, S)).astype(np.float32)
+    K = len(offs)
+    choice = rng.integers(-K, K + 2, size=S)
+    sidx = np.where(choice >= K, int(sc.INACTIVE), choice).astype(np.int32)
+    tail = (0, lay["S_pad"] - S)
+    args = (sf.pad_state(torch.from_numpy(xs), lay),
+            torch.from_numpy(sf.pad_static(pos, lay)),
+            sf.pad_sidx(torch.from_numpy(sidx), lay),
+            torch.nn.functional.pad(torch.from_numpy(rank), tail),
+            torch.nn.functional.pad(torch.from_numpy(cnt.astype(np.int32)), tail))
+    return apply_fn, lay, offs, args, 0.37
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_kernel_matches_plain_version(cuda, case):
+    apply_fn, lay, offs, args, eta = _fused_inputs(case)
+    dargs = [a.to(cuda) for a in args]
+    before = sf.sweep_apply.launches
+    out = apply_fn(*dargs, eta)
+    ref = sf.sweep_apply_ref(*[a.reshape(-1) for a in dargs], eta, offs,
+                             lay["H"])
+    torch.cuda.synchronize()
+    assert sf.sweep_apply.launches == before + 1
+    assert out.shape == (lay["S_pad"],) and out.device.type == "cuda"
+    assert torch.equal(out, ref)
+    # the card's plain version against the CPU's, same inputs
+    torch.testing.assert_close(out.cpu(), apply_fn(*args, eta), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("S,halo", [(1, 8), (1000, 1), (70_001, 8),
+                                    (65_536 * 3, 16)])
+def test_shift_sum_kernel_matches_plain_version(cuda, variant, S, halo):
+    x = torch.from_numpy(np.random.default_rng(S).standard_normal(S).astype(
+        np.float32)).to(cuda)
+    before = shift_sum.launches[variant]
+    out = shift_sum(x, halo, variant)
+    torch.cuda.synchronize()
+    assert shift_sum.launches[variant] == before + 1
+    assert torch.equal(out, shift_sum_ref(x, halo))
+
+
+def test_dense_probe_runs_on_the_card(cuda):
+    res = dense_probe.run(2 * dense_probe.BLOCK, cuda)
+    assert res["launches"] == dict.fromkeys(VARIANTS, 1)
+    for v in VARIANTS:
+        assert res["variants"][v]["bit_identical"]
+        assert res["variants"][v]["ms"] > 0
+    assert res["library_max_abs_err"] <= dense_probe.LIBRARY_ATOL
