@@ -3,7 +3,9 @@
 ``synthetic_path_index`` and ``rank_quality`` are copied unchanged from
 ``gfasort_tpu/bench_util.py``; ``layout_quality_vs_oracle`` is that
 module's layout certificate with the port's sweep engine on ``device``;
-``cuda_ms`` times device work with CUDA events.
+``cuda_ms`` times device work with CUDA events; ``BENCH_SHAPE``,
+``contract_choices`` and ``bench_layout_coords`` make the bucket kernels'
+inputs of ``chip_smoke.py`` and ``tools/kernel_ab.py``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,10 @@ import numpy as np
 from .index import PathIndex
 
 __all__ = ["synthetic_path_index", "rank_quality", "layout_quality_vs_oracle",
-           "cuda_ms"]
+           "cuda_ms", "BENCH_SHAPE", "contract_choices", "bench_layout_coords"]
+
+# the bench-shape graph: nodes, paths, steps per path (bench.py:50-52)
+BENCH_SHAPE = (1_000_000, 16, 250_000)
 
 
 def synthetic_path_index(
@@ -146,3 +151,39 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def contract_choices(rng, S, buckets, P):
+    """Random choice words that obey the sampler contract: every +k / -k
+    choice stays inside the array (as in tests/test_sweep_dense.py).
+    One int32 [S] array (P == 1) or the ceil(P / 4) packed words, on the
+    CPU."""
+    import torch
+
+    from .ops.sweep_common import INACTIVE, pack_choices_words
+
+    kis = [ki for _, ki in buckets]
+    iota = np.arange(S)
+    pool = np.array(kis + [~ki for ki in kis] + [int(INACTIVE)], np.int32)
+
+    def draw():
+        s = pool[rng.integers(0, len(pool), S)]
+        for k, ki in buckets:
+            s = np.where((s == ki) & (iota + k >= S), INACTIVE, s)
+            s = np.where((s == ~ki) & (iota - k < 0), INACTIVE, s)
+        return torch.from_numpy(s.astype(np.int32))
+
+    if P == 1:
+        return [draw()]
+    return pack_choices_words([draw() for _ in range(P)])
+
+
+def bench_layout_coords(rng, pos_np: np.ndarray, D: int) -> np.ndarray:
+    """f32 [D, S] layout coordinates at the bench's scale: x ~ the path
+    position, the other dimensions ~ N(0, 2N); a few coincident ones hit
+    the zero guard."""
+    S = pos_np.shape[0]
+    c_np = (rng.standard_normal((D, S)) * 1414.0).astype(np.float32)
+    c_np[0] = pos_np + rng.standard_normal(S).astype(np.float32)
+    c_np[:, 7::1001] = c_np[:, 8::1001][:, :c_np[:, 7::1001].shape[1]]
+    return c_np

@@ -15,14 +15,17 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "nvcc_path", "build", "library", "bucket_apply_cuda",
-           "dense_apply_nd_cuda", "sweep_apply_cuda", "shift_sum_cuda"]
+__all__ = ["NVCC_FLAGS", "nvcc_path", "build", "ptxas_report", "library",
+           "bind_bucket_kernels",
+           "bucket_apply_cuda", "dense_apply_nd_cuda", "sweep_apply_cuda",
+           "shift_sum_cuda"]
 
 _HERE = pathlib.Path(__file__).parent
 _CSRC = _HERE / "csrc"
@@ -100,21 +103,64 @@ def build() -> tuple:
     return lib_path, "".join(log)
 
 
+def ptxas_report(log: str) -> list:
+    """One dict per compiled kernel from the ``-Xptxas -v`` lines of a
+    build log: its name (demangled by the toolkit's ``cu++filt`` where
+    there is one), registers, shared memory and spill bytes."""
+    rows = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            rows.append({"kernel": m.group(1)})
+        elif rows and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            rows[-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif rows and "Used" in line and "registers" in line:
+            rows[-1]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                  line).group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["static_smem"] = int(m.group(1)) if m else 0
+    try:
+        cufilt = pathlib.Path(nvcc_path()).with_name("cu++filt")
+        out = subprocess.run([str(cufilt)] + [r["kernel"] for r in rows],
+                             capture_output=True, text=True, check=True)
+        names = out.stdout.splitlines()
+        if len(names) == len(rows):
+            for r, name in zip(rows, names):
+                r["kernel"] = name.replace("(anonymous namespace)::", "")
+    except (OSError, RuntimeError, subprocess.CalledProcessError):
+        pass   # keep the mangled names
+    return rows
+
+
+def bind_bucket_kernels(lib: ctypes.CDLL, suffix: str = "") -> tuple:
+    """Set the ctypes signatures of the two bucket kernels' C entry
+    points in ``lib`` (named ``gfasort_bucket_apply`` and
+    ``gfasort_dense_apply_nd`` plus ``suffix``) and return them as
+    (1D, nD)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    one = getattr(lib, "gfasort_bucket_apply" + suffix)
+    one.argtypes = [
+        ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float,
+        ctypes.POINTER(ci), ctypes.POINTER(ci), ci, vp, vp, vp,
+    ]
+    one.restype = ci
+    nd = getattr(lib, "gfasort_dense_apply_nd" + suffix)
+    nd.argtypes = [
+        ci, vp, vp, ci, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float,
+        ctypes.POINTER(ci), ctypes.POINTER(ci), ci, vp, vp, vp,
+    ]
+    nd.restype = ci
+    return one, nd
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed)."""
     lib = ctypes.CDLL(str(build()[0]))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.gfasort_bucket_apply.argtypes = [
-        ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float,
-        ctypes.POINTER(ci), ctypes.POINTER(ci), ci, vp, vp, vp,
-    ]
-    lib.gfasort_bucket_apply.restype = ci
-    lib.gfasort_dense_apply_nd.argtypes = [
-        ci, vp, vp, ci, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float,
-        ctypes.POINTER(ci), ctypes.POINTER(ci), ci, vp, vp, vp,
-    ]
-    lib.gfasort_dense_apply_nd.restype = ci
+    bind_bucket_kernels(lib)
     lib.gfasort_sweep_apply.argtypes = [
         ci, vp, vp, vp, vp, vp, ci, ci, ctypes.c_float, ctypes.POINTER(ci),
         ci, vp, vp,
@@ -125,10 +171,13 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def bucket_apply_cuda(xs, pos, words, eta: float, buckets, proposals: int):
+def bucket_apply_cuda(xs, pos, words, eta: float, buckets, proposals: int,
+                      entry=None):
     """Launch the bucket-apply kernel on the current stream.  Inputs are
-    validated by the caller (``ops/sweep_dense.bucket_apply``)."""
-    lib = library()
+    validated by the caller (``ops/sweep_dense.bucket_apply``).
+    ``entry``: the C entry point to launch (default: this library's;
+    ``tools/kernel_ab`` passes an earlier build's)."""
+    entry = entry or library().gfasort_bucket_apply
     S = xs.shape[0]
     dsum = torch.empty_like(xs)
     csum = torch.empty_like(xs)
@@ -137,7 +186,7 @@ def bucket_apply_cuda(xs, pos, words, eta: float, buckets, proposals: int):
     kis = (ctypes.c_int * nb)(*[ki for _, ki in buckets])
     wptr = [w.data_ptr() for w in words] + [None] * (4 - len(words))
     stream = torch.cuda.current_stream(xs.device).cuda_stream
-    err = lib.gfasort_bucket_apply(
+    err = entry(
         xs.device.index, xs.data_ptr(), pos.data_ptr(), *wptr, len(words),
         proposals, S, float(eta), ks, kis, nb, dsum.data_ptr(),
         csum.data_ptr(), stream)
@@ -147,10 +196,11 @@ def bucket_apply_cuda(xs, pos, words, eta: float, buckets, proposals: int):
 
 
 def dense_apply_nd_cuda(my_pos, words, my_c, eta: float, buckets,
-                        proposals: int):
+                        proposals: int, entry=None):
     """Launch the nD bucket-apply kernel on the current stream.  Inputs
-    are validated by the caller (``ops/sweep_dense.dense_apply_nd``)."""
-    lib = library()
+    are validated by the caller (``ops/sweep_dense.dense_apply_nd``);
+    ``entry`` as in :func:`bucket_apply_cuda`."""
+    entry = entry or library().gfasort_dense_apply_nd
     D, S = my_c.shape
     acc = torch.empty_like(my_c)
     wacc = torch.empty_like(my_pos)
@@ -159,7 +209,7 @@ def dense_apply_nd_cuda(my_pos, words, my_c, eta: float, buckets,
     kis = (ctypes.c_int * nb)(*[ki for _, ki in buckets])
     wptr = [w.data_ptr() for w in words] + [None] * (4 - len(words))
     stream = torch.cuda.current_stream(my_pos.device).cuda_stream
-    err = lib.gfasort_dense_apply_nd(
+    err = entry(
         my_pos.device.index, my_pos.data_ptr(), my_c.data_ptr(), D, *wptr,
         len(words), proposals, S, float(eta), ks, kis, nb, acc.data_ptr(),
         wacc.data_ptr(), stream)

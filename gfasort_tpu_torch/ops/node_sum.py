@@ -11,6 +11,13 @@ list padded to its class width with a sentinel that points at an
 appended zero.  A consensus is then one gather-sum per class, with no
 scatter and no float atomics, so it is deterministic on CUDA.
 
+Each node's steps are added in step order, as the JAX engines add them
+on the CPU: the nD engine's scatter-add takes them one by one; the 1D
+engine's gather consensus reduces a row of up to 128 terms by XLA's row
+reduction, which adds runs of 32 terms in order and then the runs' sums
+in order (``run=JAX_ROW_RUN``), and scatters the steps of larger nodes.
+A ``torch.sum`` would add them in its own, vectorised order.
+
 The same tables serve the 1D engine's ``[S]`` positions and the layout
 engine's ``[R, S]`` coordinate rows (R = 2D, one row per node end and
 dimension): every row is averaged over the same step->node map.
@@ -19,11 +26,29 @@ dimension): every row is averaged over the same step->node map.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
-__all__ = ["GatherConsensus", "build_gather_consensus"]
+__all__ = ["JAX_ROW_RUN", "GatherConsensus", "build_gather_consensus"]
+
+JAX_ROW_RUN = 32     # terms per run of XLA:CPU's row reduction
+_JAX_GATHER_CAP = 128  # widest row of the JAX gather consensus
+
+
+def _row_sums(g: torch.Tensor, run: Optional[int]) -> torch.Tensor:
+    """Sums of g [..., w, n] over its w terms, added in index order; with
+    ``run``, in runs of ``run`` terms whose sums are then added in order."""
+    w = g.shape[-2]
+    run = run or w
+    total = None
+    for c0 in range(0, w, run):
+        s = g[..., c0, :]
+        for c in range(c0 + 1, min(c0 + run, w)):
+            s = s + g[..., c, :]
+        total = s if total is None else total + s
+    return total
 
 
 @dataclass
@@ -32,13 +57,16 @@ class GatherConsensus:
     node_slot: torch.Tensor     # int64 [S] step -> slot in degree-sorted order
     inv_cnt: torch.Tensor       # f32 [NL] 1 / degree of each slot's node
     slot_node: torch.Tensor     # int64 [NL] node index of each slot
+    run: Optional[int] = None   # terms per summed run; None: one run
 
     def __call__(self, xs: torch.Tensor):
         """xs [S] or [R, S] -> (xs_new, same shape; xn_sorted [NL] or
         [R, NL] per-node means)."""
         x_ext = torch.cat([xs, xs.new_zeros(xs.shape[:-1] + (1,))], dim=-1)
-        sums = torch.cat([x_ext[..., ix].sum(dim=-1) for ix in self.class_idx],
-                         dim=-1)
+        sums = torch.cat([
+            _row_sums(x_ext[..., ix.t()],
+                      self.run if ix.shape[1] <= _JAX_GATHER_CAP else None)
+            for ix in self.class_idx], dim=-1)
         xn = sums * self.inv_cnt
         return xn[..., self.node_slot], xn
 
@@ -51,9 +79,10 @@ class GatherConsensus:
         return x_node
 
 
-def build_gather_consensus(step_node: np.ndarray, n_nodes: int,
-                           device) -> GatherConsensus:
-    """Class tables for a static step->node map, uploaded to ``device``."""
+def build_gather_consensus(step_node: np.ndarray, n_nodes: int, device,
+                           run: Optional[int] = None) -> GatherConsensus:
+    """Class tables for a static step->node map, uploaded to ``device``;
+    ``run`` as in :class:`GatherConsensus`."""
     step_node = np.asarray(step_node, dtype=np.int64)
     S = int(step_node.shape[0])
     cnt = np.bincount(step_node, minlength=n_nodes)
@@ -86,4 +115,5 @@ def build_gather_consensus(step_node: np.ndarray, n_nodes: int,
         node_slot=up(slot_of_node[step_node]),
         inv_cnt=up((1.0 / np.maximum(cnt[slot_node], 1)).astype(np.float32)),
         slot_node=up(slot_node),
+        run=run,
     )

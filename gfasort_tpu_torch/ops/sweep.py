@@ -25,7 +25,7 @@ from ..graph import BidirectedGraph
 from ..index import PathIndex
 from ..params import PathSGDParams
 from .keys import key_data, sweep_key_table
-from .node_sum import build_gather_consensus
+from .node_sum import JAX_ROW_RUN, build_gather_consensus
 from .sweep_common import (SamplerConsts, pack_choices_words, sample_blocks,
                            sampler_consts, sweep_rng)
 from .sweep_dense import bucket_apply
@@ -123,7 +123,8 @@ def build_sweep_runner(
     dev = resolve_device(device)
     plan = make_sweep_plan(pidx, params, per_octave, consensus_every,
                            active_frac, rotate, dense_upto, proposals)
-    gc = build_gather_consensus(pidx.step_node_idx, pidx.num_nodes, dev)
+    gc = build_gather_consensus(pidx.step_node_idx, pidx.num_nodes, dev,
+                                run=JAX_ROW_RUN)
     arrays = static_arrays(pidx, dev)
     # [phase][cooling]
     consts = [[sampler_consts(ph, c, dev) for c in (False, True)]

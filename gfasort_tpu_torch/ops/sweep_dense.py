@@ -22,7 +22,7 @@ import torch
 from .sweep_common import INACTIVE, PACKED_INACTIVE, unpack_choice
 
 __all__ = ["MAX_BUCKETS", "MAX_DIMS", "bucket_apply", "bucket_apply_ref",
-           "dense_apply", "dense_apply_nd", "dense_apply_nd_ref"]
+           "dense_apply", "dense_apply_nd", "dense_apply_nd_ref", "sqrt_rn"]
 
 MAX_BUCKETS = 64   # the kernels' bucket table (csrc/*.cu)
 MAX_WORDS = 4      # P <= 16 proposals
@@ -38,6 +38,17 @@ def _fields(words, proposals: int):
     if proposals == 1:
         return [words[0]]
     return [unpack_choice(words[p // 4], p % 4) for p in range(proposals)]
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of an f32 tensor, on every
+    device.  CUDA's f32 sqrt is the IEEE one; PyTorch's vectorised f32
+    sqrt on the CPU is not (1 ulp off for some inputs), so there the
+    f64 root is rounded to f32, which is correct since f64 carries more
+    than 2 * 24 + 2 bits."""
+    if x.device.type == "cuda":
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(x.dtype)
 
 
 def _shift(a: torch.Tensor, k: int, fill) -> torch.Tensor:
@@ -146,7 +157,8 @@ def dense_apply_nd_ref(my_pos, words, my_c, eta: float, buckets,
     """Plain PyTorch nD bucket apply (the spec of the nD kernel): the
     Euclidean pair update over the D rows of ``my_c``, with the
     zero-distance guard on dimension 0 and the r clamp.  ``1 / sqrt``
-    stands for the JAX ``rsqrt``: both factors are correctly rounded."""
+    stands for the JAX ``rsqrt``: both factors are correctly rounded
+    (:func:`sqrt_rn`)."""
     fill = int(INACTIVE) if proposals == 1 else int(PACKED_INACTIVE)
     sidxs = _fields(words, proposals)
     D = my_c.shape[0]
@@ -180,7 +192,7 @@ def dense_apply_nd_ref(my_pos, words, my_c, eta: float, buckets,
             zero = mag_sq == 0
             deltas[0] = torch.where(zero, 1e-9, deltas[0])
             mag_sq = torch.where(zero, 1e-18, mag_sq)
-            inv = 1.0 / torch.sqrt(mag_sq)
+            inv = 1.0 / sqrt_rn(mag_sq)
             mag = mag_sq * inv
             r = torch.clamp_max(mu * (mag - safe) * 0.5 * inv, 1e30)
             wr = w * r

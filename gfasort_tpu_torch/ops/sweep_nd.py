@@ -32,7 +32,7 @@ from .keys import key_data, sweep_key_table
 from .node_sum import build_gather_consensus
 from .sweep_common import (SamplerConsts, pack_choices_words, sample_blocks,
                            sampler_consts, sweep_rng)
-from .sweep_dense import dense_apply_nd
+from .sweep_dense import dense_apply_nd, sqrt_rn
 from .sweep_plan import PhasePlan, make_layout_plan
 
 __all__ = ["build_sweep_nd_runner", "nd_sweep_once",
@@ -65,7 +65,7 @@ def _roll_half_nd(my_pos, my_c, eta_t, shift: int, pairs, iota):
     deltas[0] = torch.where(zero, 1e-9, deltas[0])
     mag_sq = torch.where(zero, 1e-18, mag_sq)
     # 1 / sqrt for the JAX rsqrt, as in ops/sweep_dense.dense_apply_nd_ref
-    inv = 1.0 / torch.sqrt(mag_sq)
+    inv = 1.0 / sqrt_rn(mag_sq)
     mag = mag_sq * inv
     r = torch.clamp_max(mu * (mag - safe) * 0.5 * inv, 1e30)
     return -(w * r) * deltas, w

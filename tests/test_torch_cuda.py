@@ -41,12 +41,22 @@ pytestmark = pytest.mark.cuda
 DSUM_RTOL, DSUM_ATOL = 2e-5, 1e-4
 
 PHASE = [(1, 0), (2, 1), (3, 2), (4, 3), (6, 4), (8, 5), (181, 9), (1024, 11)]
+# steps per block (kTile) of csrc/bucket_apply.cu and csrc/dense_apply_nd.cu
+TILE, TILE_ND = 1024, 512
 CASES = {
     "dense": (7000, [(k, k - 1) for k in range(1, 9)], 1),
     "mid": (70_000, [(1, 0), (5, 4), (181, 9), (1449, 11), (8192, 13)], 1),
     "p4": (70_001, PHASE, 4),
     "p12": (30_000, PHASE, 12),
     "offset_past_end": (300, [(1, 0), (512, 1)], 12),
+    # one step short of a tile, one tile, one step into the next
+    "tile_m1": (TILE - 1, PHASE, 12),
+    "tile": (TILE, PHASE, 12),
+    "tile_p1": (TILE + 1, PHASE, 12),
+    # a bucket past the tile: every -k pair evaluated by its own step
+    "p12_k8192": (30_000, PHASE + [(8192, 13)], 12),
+    # P = 5: three unused fields of the last word are 0, which is ki = 0
+    "p5_ki0": (5000, PHASE, 5),
 }
 
 
@@ -93,7 +103,7 @@ def test_kernel_matches_plain_version(cuda, case):
     assert bucket_apply.launches == before + 1
     assert dk.device.type == "cuda" and dk.dtype == torch.float32
     assert torch.equal(ck, cr)
-    torch.testing.assert_close(dk, dr, rtol=DSUM_RTOL, atol=DSUM_ATOL)
+    assert torch.equal(dk, dr)
 
 
 def test_kernel_matches_cpu_plain_version(cuda):
@@ -177,6 +187,11 @@ ND_CASES = {
     "d3_p1_mid": (70_000, 3, [(1, 0), (5, 4), (181, 9), (1449, 11),
                               (8192, 13)], 1),
     "d8_p12_past_end": (300, 8, [(1, 0), (512, 1)], 12),
+    "d2_p8_tile_m1": (TILE_ND - 1, 2, PHASE, 8),
+    "d2_p8_tile": (TILE_ND, 2, PHASE, 8),
+    "d2_p8_tile_p1": (TILE_ND + 1, 2, PHASE, 8),
+    "d2_p12_k8192": (30_000, 2, PHASE + [(8192, 13)], 12),
+    "d3_p5_ki0": (5000, 3, PHASE, 5),
 }
 
 
@@ -204,7 +219,7 @@ def test_nd_kernel_matches_plain_version(cuda, case):
     assert dense_apply_nd.launches == before + 1
     assert acc_k.shape == my_c.shape and acc_k.device.type == "cuda"
     assert torch.equal(w_k, w_r)
-    torch.testing.assert_close(acc_k, acc_r, rtol=DSUM_RTOL, atol=DSUM_ATOL)
+    assert torch.equal(acc_k, acc_r)
     # the card's plain version against the CPU's, same inputs
     acc_c, w_c = dense_apply_nd(pos.cpu(), [w.cpu() for w in words],
                                 my_c.cpu(), eta, buckets, P)

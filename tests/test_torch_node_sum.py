@@ -10,7 +10,8 @@ import jax.numpy as jnp  # noqa: E402
 from gfasort_tpu.bench_util import synthetic_path_index  # noqa: E402
 from gfasort_tpu.ops.grid_consensus import build_grid_consensus  # noqa: E402
 from gfasort_tpu.ops.node_sum import build_gather_consensus as jax_gather  # noqa: E402
-from gfasort_tpu_torch.ops.node_sum import build_gather_consensus  # noqa: E402
+from gfasort_tpu_torch.ops.node_sum import (JAX_ROW_RUN,  # noqa: E402
+                                            build_gather_consensus)
 
 
 def _step_map(rng, n_nodes, S, hub_degree):
@@ -43,6 +44,39 @@ def test_consensus_matches_jax_gather():
     np.testing.assert_array_equal(node_t[-10:], x_init[-10:])
     # every step holds its node's mean
     np.testing.assert_array_equal(xs_t.numpy(), node_t[step_node])
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+def test_consensus_sums_in_the_jax_order(rows):
+    """Bit for bit against both JAX engines' consensus on the CPU: with
+    ``run=JAX_ROW_RUN`` the 1D engine's gather form (XLA's row reduction
+    adds runs of 32 terms; nodes above 128 steps are scattered), in one
+    run the nD engine's scatter-add.  Degrees reach past 32 and 128."""
+    rng = np.random.default_rng(3)
+    N, S = 3000, 12_000
+    step_node = _step_map(rng, N, S, hub_degree=300)
+    step_node[rng.choice(np.flatnonzero(step_node != 3), 60,
+                         replace=False)] = 7
+    cs = (rng.standard_normal((rows, S)) * 1e4).astype(np.float32)
+    cnt = np.bincount(step_node, minlength=N)
+    assert cnt.max() > 128 and ((cnt > 32) & (cnt <= 128)).any()
+
+    gj = jax_gather(step_node, N, np.float32)
+    g1 = build_gather_consensus(step_node, N, "cpu", run=JAX_ROW_RUN)
+    for r in range(rows):
+        xs_j, _ = gj.fn(jnp.asarray(cs[r]), *gj.arrays)
+        xs_t, _ = g1(torch.from_numpy(cs[r]))
+        np.testing.assert_array_equal(xs_t.numpy(), np.asarray(xs_j))
+
+    inv_cnt = jnp.asarray((1.0 / np.maximum(cnt, 1)).astype(np.float32))
+    node_j = np.stack([np.asarray(
+        jnp.zeros((N,), jnp.float32).at[step_node].add(cs[r]) * inv_cnt)
+        for r in range(rows)])
+    gs = build_gather_consensus(step_node, N, "cpu")
+    _, xn_t = gs(torch.from_numpy(cs))
+    node_t = gs.to_node_order(xn_t, torch.zeros(rows, N)).numpy()
+    has = cnt > 0
+    np.testing.assert_array_equal(node_t[:, has], node_j[:, has])
 
 
 def test_consensus_matches_jax_grid():

@@ -69,6 +69,10 @@ def runs(request):
         p1 = _params(pidx, 3)
         out["period"] = (_run_jax(pidx, p1, kw), _run_port(pidx, p1, kw),
                          _run_port(pidx, p1, kw))
+        # the same JAX runner op by op: XLA fuses nothing, so it contracts
+        # no multiply-add and keeps each op's own rounding
+        with jax.disable_jit():
+            out["unjitted"] = _run_jax(pidx, p1, kw)
         p10 = _params(pidx, 10)
         out["iter10"] = (_run_jax(pidx, p10, kw), _run_port(pidx, p10, kw))
         yield out
@@ -88,6 +92,15 @@ def test_one_consensus_period_matches_jax(runs):
     assert info["n_sweeps"] <= info["consensus_every"]
     assert x_t.dtype == np.float32 and np.isfinite(x_t).all()
     np.testing.assert_allclose(x_t, x_j, rtol=1e-5, atol=1e-3)
+
+
+def test_one_consensus_period_equals_unjitted_jax(runs):
+    """Bit for bit against the JAX runner run op by op.  What remains
+    against the jitted runner (``test_one_consensus_period_matches_jax``)
+    is XLA's fusion of the sweep's ops; the consensus sums each node's
+    steps in the JAX engine's order (``ops/node_sum.py``)."""
+    (x_u, _), (x_t, _) = runs["unjitted"], runs["period"][1]
+    np.testing.assert_array_equal(x_t, x_u)
 
 
 def test_port_runs_are_bit_identical(runs):

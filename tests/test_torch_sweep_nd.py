@@ -26,7 +26,7 @@ from gfasort_tpu_torch.convert import (key_words_from_jax,  # noqa: E402
 from gfasort_tpu_torch.ops import sweep_nd as port_nd  # noqa: E402
 from gfasort_tpu_torch.ops.sweep_common import INACTIVE  # noqa: E402
 from gfasort_tpu_torch.ops.sweep_dense import (dense_apply_nd,  # noqa: E402
-                                               dense_apply_nd_ref)
+                                               dense_apply_nd_ref, sqrt_rn)
 from gfasort_tpu_torch.ops.sweep_plan import make_layout_plan  # noqa: E402
 
 # the TPU kernel test's precedent (tests/test_sweep_dense.py)
@@ -178,6 +178,11 @@ def runs(request):
         x_j, info_j, arr_j = _run_jax(pidx, lp, kw, init)
         out["period"] = ((x_j, info_j), _run_port(pidx, lp, kw, init, arr_j),
                          _run_port(pidx, lp, kw, init))
+        # the same JAX runner op by op (no fusion), with its rsqrt read as
+        # the port's 1 / sqrt
+        with mp.context() as m, jax.disable_jit():
+            m.setattr(jax.lax, "rsqrt", lambda x: 1.0 / jnp.sqrt(x))
+            out["unjitted"] = _run_jax(pidx, lp, kw, init)[0]
         yield out
     finally:
         mp.undo()
@@ -195,9 +200,18 @@ def test_one_consensus_period_matches_jax(runs):
     assert info["n_sweeps"] <= info["consensus_every"]
     assert x_t.shape == (2 * runs["D"], runs["pidx"].num_nodes)
     assert x_t.dtype == np.float32 and np.isfinite(x_t).all()
-    # f32 reassociation of the consensus sums (gather classes vs the JAX
-    # scatter-add), as in tests/test_sweep_dense.py
+    # XLA's fusion of the jitted sweep and its approximate rsqrt
+    # (test_one_consensus_period_equals_unjitted_jax_with_exact_rsqrt)
     np.testing.assert_allclose(x_t, x_j, rtol=1e-4, atol=0.2)
+
+
+def test_one_consensus_period_equals_unjitted_jax_with_exact_rsqrt(runs):
+    """Bit for bit against the JAX runner run op by op with ``rsqrt``
+    as 1 / sqrt: the consensus sums each node's steps in the scatter-add's
+    order and the square roots are correctly rounded on the CPU
+    (``sqrt_rn``), as in the kernel."""
+    (_, _), (x_t, _), _ = runs["period"]
+    np.testing.assert_array_equal(x_t, runs["unjitted"])
 
 
 def test_port_layout_runs_are_bit_identical(runs):
@@ -269,6 +283,17 @@ def test_layout_sweep_contract_edges():
             g, replace(lp, dtype="float64"), pidx, device="cpu")
 
 
+def test_sqrt_rn_is_correctly_rounded():
+    """``sqrt_rn`` (the plain versions' square root) equals numpy's f32
+    sqrt, the IEEE root, over several ranges."""
+    rng = np.random.default_rng(3)
+    x = np.concatenate([np.abs(rng.standard_normal(200_000)) * 1e5,
+                        rng.random(200_000) * 1e-30, rng.random(1000) * 1e30,
+                        [0.0, 1e-18, 1.0, 2.0, 3e38]]).astype(np.float32)
+    np.testing.assert_array_equal(sqrt_rn(torch.from_numpy(x)).numpy(),
+                                  np.sqrt(x))
+
+
 def test_rsqrt_spec_is_within_one_ulp_of_exact_as_xla_rsqrt():
     """The port computes the JAX spec's ``rsqrt`` as ``1 / sqrt`` (two
     correctly rounded ops, the same on the CPU and in the CUDA kernel).
@@ -278,7 +303,7 @@ def test_rsqrt_spec_is_within_one_ulp_of_exact_as_xla_rsqrt():
     x = np.concatenate([np.abs(rng.standard_normal(20_000)),
                         rng.random(20_000) * 1e8, rng.random(20_000) * 1e-6,
                         [1e-18, 1.0, 4.0]]).astype(np.float32)
-    port = (1.0 / torch.sqrt(torch.from_numpy(x))).numpy()
+    port = (1.0 / sqrt_rn(torch.from_numpy(x))).numpy()
     xla = np.asarray(jax.lax.rsqrt(jnp.asarray(x)))
     exact = (1.0 / np.sqrt(x.astype(np.float64))).astype(np.float32)
 
