@@ -5,7 +5,8 @@
 module's layout certificate with the port's sweep engine on ``device``;
 ``cuda_ms`` times device work with CUDA events; ``BENCH_SHAPE``,
 ``contract_choices`` and ``bench_layout_coords`` make the bucket kernels'
-inputs of ``chip_smoke.py`` and ``tools/kernel_ab.py``.
+inputs of ``chip_smoke.py`` and ``tools/kernel_ab.py``, ``fused_cases`` the
+fused sweep apply's.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import numpy as np
 from .index import PathIndex
 
 __all__ = ["synthetic_path_index", "rank_quality", "layout_quality_vs_oracle",
-           "cuda_ms", "BENCH_SHAPE", "contract_choices", "bench_layout_coords"]
+           "cuda_ms", "BENCH_SHAPE", "contract_choices", "bench_layout_coords",
+           "fused_cases"]
 
 # the bench-shape graph: nodes, paths, steps per path (bench.py:50-52)
 BENCH_SHAPE = (1_000_000, 16, 250_000)
@@ -187,3 +189,44 @@ def bench_layout_coords(rng, pos_np: np.ndarray, D: int) -> np.ndarray:
     c_np[0] = pos_np + rng.standard_normal(S).astype(np.float32)
     c_np[:, 7::1001] = c_np[:, 8::1001][:, :c_np[:, 7::1001].shape[1]]
     return c_np
+
+
+def fused_cases(pidx, plan, dev):
+    """The fused sweep apply's cases on ``pidx`` (its real rank and cnt)
+    over the full offset sets of ``plan``'s phases 0 and 1, each at the
+    first and the last sweep's eta: xs ~ N(0, 100^2) and P = 1 contract
+    choices from seed 2.  One dict per case: ``phase_of_plan``,
+    ``eta_of`` ("first" or "last"), ``eta``, ``offs``, ``phase``,
+    ``layout``, the unpadded ``xs``, ``pos``, ``sidx`` and ``args``, the
+    padded (xs, pos, sidx, rank, cnt) in the layout's [rows, 128] views,
+    all on ``dev``."""
+    import torch
+    import torch.nn.functional as F
+
+    from .ops.sweep_fused import (build_sweep_apply, pad_sidx, pad_state,
+                                  pad_static)
+
+    S = pidx.total_steps
+    rng = np.random.default_rng(2)
+    xs = torch.from_numpy((rng.standard_normal(S) * 100).astype(np.float32)).to(dev)
+    pos_np = pidx.step_pos.astype(np.float32)
+    pos = torch.from_numpy(pos_np).to(dev)
+    rank = torch.from_numpy(pidx.step_rank.astype(np.int32)).to(dev)
+    cnt = torch.from_numpy(pidx.step_count_of_step.astype(np.int32)).to(dev)
+    etas = {"first": float(plan.sweep_eta[0]), "last": float(plan.sweep_eta[-1])}
+    cases = []
+    for ph_i in (0, 1):
+        phase = plan.phases[ph_i]
+        offs = tuple(int(k) for k in phase.offs)
+        sidx = contract_choices(rng, S, [(k, ki) for ki, k in enumerate(offs)],
+                                1)[0].to(dev)
+        _, lay = build_sweep_apply(offs, S)
+        tail = (0, lay["S_pad"] - S)
+        args = (pad_state(xs, lay),
+                torch.from_numpy(pad_static(pos_np, lay)).to(dev),
+                pad_sidx(sidx, lay), F.pad(rank, tail), F.pad(cnt, tail))
+        for eta_of, eta in etas.items():
+            cases.append(dict(phase_of_plan=ph_i, eta_of=eta_of, eta=eta,
+                              offs=offs, phase=phase, layout=lay, xs=xs,
+                              pos=pos, sidx=sidx, args=args))
+    return cases

@@ -23,7 +23,7 @@ import tempfile
 import torch
 
 __all__ = ["NVCC_FLAGS", "nvcc_path", "build", "ptxas_report", "library",
-           "bind_bucket_kernels",
+           "bind_entry",
            "bucket_apply_cuda", "dense_apply_nd_cuda", "sweep_apply_cuda",
            "shift_sum_cuda"]
 
@@ -134,40 +134,36 @@ def ptxas_report(log: str) -> list:
     return rows
 
 
-def bind_bucket_kernels(lib: ctypes.CDLL, suffix: str = "") -> tuple:
-    """Set the ctypes signatures of the two bucket kernels' C entry
-    points in ``lib`` (named ``gfasort_bucket_apply`` and
-    ``gfasort_dense_apply_nd`` plus ``suffix``) and return them as
-    (1D, nD)."""
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    one = getattr(lib, "gfasort_bucket_apply" + suffix)
-    one.argtypes = [
-        ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float,
-        ctypes.POINTER(ci), ctypes.POINTER(ci), ci, vp, vp, vp,
-    ]
-    one.restype = ci
-    nd = getattr(lib, "gfasort_dense_apply_nd" + suffix)
-    nd.argtypes = [
-        ci, vp, vp, ci, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float,
-        ctypes.POINTER(ci), ctypes.POINTER(ci), ci, vp, vp, vp,
-    ]
-    nd.restype = ci
-    return one, nd
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_IP = ctypes.POINTER(_CI)
+# the C entry points of csrc/*.cu and their ctypes argument types
+_ARGTYPES = {
+    "gfasort_bucket_apply": [_CI, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI,
+                             _CF, _IP, _IP, _CI, _VP, _VP, _VP],
+    "gfasort_dense_apply_nd": [_CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP, _CI, _CI,
+                               _CI, _CF, _IP, _IP, _CI, _VP, _VP, _VP],
+    "gfasort_sweep_apply": [_CI, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CF, _IP,
+                            _CI, _VP, _VP],
+    "gfasort_shift_sum": [_CI, _VP, _VP, _CI, _CI, _CI, _VP],
+}
+
+
+def bind_entry(lib: ctypes.CDLL, name: str, suffix: str = ""):
+    """Set the ctypes signature of the C entry point ``name`` +
+    ``suffix`` in ``lib`` (``tools/kernel_ab`` loads earlier builds with
+    renamed entry points) and return it."""
+    fn = getattr(lib, name + suffix)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = _CI
+    return fn
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed)."""
     lib = ctypes.CDLL(str(build()[0]))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    bind_bucket_kernels(lib)
-    lib.gfasort_sweep_apply.argtypes = [
-        ci, vp, vp, vp, vp, vp, ci, ci, ctypes.c_float, ctypes.POINTER(ci),
-        ci, vp, vp,
-    ]
-    lib.gfasort_sweep_apply.restype = ci
-    lib.gfasort_shift_sum.argtypes = [ci, vp, vp, ci, ci, ci, vp]
-    lib.gfasort_shift_sum.restype = ci
+    for name in _ARGTYPES:
+        bind_entry(lib, name)
     return lib
 
 
@@ -220,15 +216,16 @@ def dense_apply_nd_cuda(my_pos, words, my_c, eta: float, buckets,
 
 
 def sweep_apply_cuda(xs_pad, pos_pad, sidx_pad, rank, cnt, eta: float, offs,
-                     H: int):
+                     H: int, entry=None):
     """Launch the fused sweep-apply kernel on the current stream.  Inputs
-    are validated by the caller (``ops/sweep_fused.sweep_apply``)."""
-    lib = library()
+    are validated by the caller (``ops/sweep_fused.sweep_apply``);
+    ``entry`` as in :func:`bucket_apply_cuda`."""
+    entry = entry or library().gfasort_sweep_apply
     S_pad = rank.shape[0]
     out = torch.empty(S_pad, dtype=torch.float32, device=xs_pad.device)
     ks = (ctypes.c_int * len(offs))(*offs)
     stream = torch.cuda.current_stream(xs_pad.device).cuda_stream
-    err = lib.gfasort_sweep_apply(
+    err = entry(
         xs_pad.device.index, xs_pad.data_ptr(), pos_pad.data_ptr(),
         sidx_pad.data_ptr(), rank.data_ptr(), cnt.data_ptr(), S_pad, H,
         float(eta), ks, len(offs), out.data_ptr(), stream)

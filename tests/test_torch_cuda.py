@@ -262,18 +262,26 @@ FUSED_CASES = {
     "large": (70_001, [1, 2, 3, 5, 181, 1449, 8192, 30_000], 9000, 64 * 1024),
     # the kernel's full offset table
     "k64": (20_000, list(range(1, 65)), 5000, 4096),
+    # around the kernel's tile of 256 steps: near and far buckets
+    "tile_edges": (5000, [1, 3, 255, 256, 257, 512], 3000, 1024),
 }
 
 
-def _fused_inputs(case, seed=4):
+def _fused_inputs(case, seed=4, guards="path"):
     """Padded inputs on the CPU: paths of ``path_len`` steps (the last
-    one shorter), choices of every bucket and sign plus INACTIVE, with
-    repeated positions and equal xs hitting both zero guards."""
+    one shorter), or with ``guards="arbitrary"`` random rank and cnt, so
+    that the two guards of a pair disagree; choices of every bucket and
+    sign plus INACTIVE, with repeated positions and equal xs hitting both
+    zero guards."""
     S, offs, path_len, tile = FUSED_CASES[case]
     rng = np.random.default_rng(seed)
     apply_fn, lay = sf.build_sweep_apply(offs, S, tile=tile)
-    rank = (np.arange(S) % path_len).astype(np.int32)
-    cnt = np.minimum(path_len, S - (np.arange(S) // path_len) * path_len)
+    if guards == "path":
+        rank = (np.arange(S) % path_len).astype(np.int32)
+        cnt = np.minimum(path_len, S - (np.arange(S) // path_len) * path_len)
+    else:
+        rank = rng.integers(0, 2 * max(offs), S).astype(np.int32)
+        cnt = rng.integers(0, 3 * max(offs), S)
     xs = (rng.standard_normal(S) * 100).astype(np.float32)
     xs[5::7] = xs[6::7][:len(xs[5::7])]
     pos = np.cumsum(rng.integers(0, 4, S)).astype(np.float32)
@@ -304,6 +312,45 @@ def test_fused_kernel_matches_plain_version(cuda, case):
     # the card's plain version against the CPU's, same inputs
     torch.testing.assert_close(out.cpu(), apply_fn(*args, eta), rtol=1e-5,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("eta", [0.01, 1e4])
+@pytest.mark.parametrize("guards", ["path", "arbitrary"])
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_kernel_matches_plain_version_at_any_eta(cuda, case, guards, eta):
+    """The last sweeps' eta (below every d: the divide eta / safe runs
+    everywhere) and a large one (skipped where safe <= eta), on
+    path-contiguous and on arbitrary rank/cnt."""
+    apply_fn, lay, offs, args, _ = _fused_inputs(case, guards=guards)
+    dargs = [a.to(cuda) for a in args]
+    before = sf.sweep_apply.launches
+    out = apply_fn(*dargs, eta)
+    ref = sf.sweep_apply_ref(*[a.reshape(-1) for a in dargs], eta, offs,
+                             lay["H"])
+    torch.cuda.synchronize()
+    assert sf.sweep_apply.launches == before + 1
+    assert torch.isfinite(ref).all()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("case", ["k_offs", "tile_edges"])
+def test_fused_kernel_without_the_staged_window(cuda, case):
+    """Inputs that start 4 bytes past a 16-byte boundary cannot be staged
+    by the bulk copies: the kernel reads the near partners from global
+    memory instead, with the same result."""
+    apply_fn, lay, offs, args, eta = _fused_inputs(case, guards="arbitrary")
+    dargs = []
+    for a in args[:3]:
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=cuda)
+        view = buf[1:]
+        view.copy_(a.reshape(-1))
+        assert view.data_ptr() % 16 != 0
+        dargs.append(view)
+    dargs += [a.to(cuda) for a in args[3:]]
+    out = sf.sweep_apply(*dargs, eta, offs, lay["H"])
+    ref = sf.sweep_apply_ref(*dargs, eta, offs, lay["H"])
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
