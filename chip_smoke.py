@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failed check raises and the script exits non-zero:
+Phases (they run in the order 1-8, 13's CLI run, 9, 11-14, 10); any
+failed check raises and the script exits non-zero:
 
 1. build      — compile the hand-written CUDA kernels from ``csrc/``, one
                 ``nvcc`` per source, all at once (timed).
@@ -52,6 +53,26 @@ Phases, in order; any failed check raises and the script exits non-zero:
 10. quality_nd — the port's layout against the C++ oracle on the 20k-node
                 layout certificate, 2D and 3D, with the bench's nD knobs:
                 stress ratio <= 1.5.
+11. sweep_f64 — the 1D sweep at float64 (threefry draws, every bucket a
+                roll pass: the plan's kernel buckets must be 0 and the
+                bucket kernel must not launch), timed on the bench index
+                at full width, and its order certified on the 100k-node
+                workload against the same oracle as ``quality``.
+12. sweep_threefry — the same at float32 with ``GFASORT_SWEEP_RNG=
+                threefry``: the bucket kernel launches once per executed
+                sweep on the bench index; the certificate as above.
+13. batched   — the batched engine: ``-p Y --engine batched`` on the
+                bench GFA through ``cli.main`` (hashes and counts kept,
+                rounds/s and pair-updates/s from the trace); its order
+                certified on the 100k-node workload at f64 and f32
+                (``pow_mode="fpp"``), the f64 run repeated and compared
+                with ``torch.equal``; the 2D batched layout on the
+                20k-node workload against the C++ oracle (stress ratio
+                <= 1.5).
+14. checkpoint — the checkpointed 1D batched run on the 100k-node
+                workload, stopped after two segments and resumed, equal
+                to the single-shot run; a checkpoint of another seed is
+                refused.
 
 Then the ``nvidia-smi`` card line, one JSON line describing every kernel,
 and ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -91,6 +112,10 @@ SHIFT_SIZES = (1 << 22, 1 << 26)
 # the bench's nD knobs (ce 48, rotate 12, frac 1.0, dense_upto 4, P 8)
 ND_CERT_KW = dict(consensus_every=48, rotate=12, active_frac=1.0,
                   dense_upto=4, proposals=8)
+# the batched engine's CLI run on the bench GFA (the CLI default) and
+# the checkpoint phase's segment
+BATCHED_CLI_ITER = 100
+CKPT_SEGMENT = 1000
 # published H100 SXM peaks: HBM bytes/s and f32 operations/s (no tensor
 # cores)
 HBM_BYTES_S = 3.35e12
@@ -621,6 +646,228 @@ def phase_quality(card_line):
         sweep_s=t_sweep, oracle_s=t_oracle, passed=ok, **cfg, **q)
     if not ok:
         raise AssertionError(f"quality certificate failed: {q}")
+    return dict(pidx=pidx, params=p, x_oracle=x_oracle, cfg=cfg)
+
+
+def certify(phase, card_line, cert, x, seconds, **extra):
+    """Rank-MAE/N and Spearman of ``x``'s order against the certificate
+    workload's oracle order, held to ``bench.py``'s thresholds."""
+    q = rank_quality_of(x, cert["x_oracle"])
+    ok = q["rank_mae_frac"] <= RANK_MAE_MAX and q["spearman"] >= SPEARMAN_MIN
+    say(phase, card_line, part="certificate", seconds=seconds, passed=ok,
+        **extra, **cert["cfg"], **q)
+    if not ok:
+        raise AssertionError(f"{phase} certificate failed: {q}")
+    return q
+
+
+def rank_quality_of(x, x_ref):
+    from gfasort_tpu_torch.bench_util import rank_quality
+
+    return rank_quality(np.argsort(x, kind="stable"),
+                        np.argsort(x_ref, kind="stable"))
+
+
+def phase_sweep_mode(phase, bench, cert, card_line, dtype, rng):
+    """The 1D sweep engine at ``dtype`` with ``GFASORT_SWEEP_RNG=rng``:
+    timed on the bench index (a direct engine call, host set-up
+    included), with the bucket kernel's launches counted from 0 around
+    it, then certified on the certificate workload."""
+    from gfasort_tpu_torch.ops.sweep import path_linear_sgd_sweep
+    from gfasort_tpu_torch.ops.sweep_plan import make_sweep_plan
+    from gfasort_tpu_torch.params import PathSGDParams
+
+    old = os.environ.get("GFASORT_SWEEP_RNG")
+    os.environ["GFASORT_SWEEP_RNG"] = rng
+    try:
+        p = replace(PathSGDParams().derive_from_graph(bench), dtype=dtype)
+        plan = make_sweep_plan(bench, p)
+        kernel_buckets = sum(len(ph.kernel_buckets) for ph in plan.phases)
+        roll_buckets = sum(len(ph.roll_buckets) for ph in plan.phases)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = path_linear_sgd_sweep(None, p, bench, device="cuda")
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        if x.shape != (bench.num_nodes,) or not np.isfinite(x).all():
+            raise AssertionError(f"{phase}: positions not finite [N]")
+        want = 0 if dtype == "float64" else plan.n_exec
+        if dtype == "float64" and kernel_buckets:
+            raise AssertionError(f"{phase}: {kernel_buckets} kernel buckets")
+        if launches["bucket_apply"] != want:
+            raise AssertionError(f"{phase}: {launches['bucket_apply']} bucket "
+                                 f"kernel launches, expected {want}")
+        updates = plan.n_sweeps * plan.updates_per_sweep
+        say(phase, card_line, part="bench", dtype=dtype, rng=plan.knobs.rng,
+            nodes=bench.num_nodes, steps=bench.total_steps, engine_s=secs,
+            n_sweeps=plan.n_sweeps, exec_sweeps=plan.n_exec,
+            proposals=plan.proposals, kernel_buckets=kernel_buckets,
+            roll_buckets=roll_buckets, updates=updates,
+            pair_updates_per_s_engine=updates / secs,
+            kernel_launches=launches)
+        pc = replace(cert["params"], dtype=dtype)
+        t0 = time.perf_counter()
+        xc = path_linear_sgd_sweep(None, pc, cert["pidx"], device="cuda")
+        certify(phase, card_line, cert, xc, time.perf_counter() - t0,
+                dtype=dtype, rng=rng)
+    finally:
+        if old is None:
+            os.environ.pop("GFASORT_SWEEP_RNG", None)
+        else:
+            os.environ["GFASORT_SWEEP_RNG"] = old
+
+
+def phase_batched_cli(gfa_in, tmp, card_line):
+    """``-p Y --engine batched`` on the bench GFA through the CLI at its
+    default schedule; every kernel counter read from 0 around it (the
+    batched path runs no hand-written kernel)."""
+    from gfasort_tpu_torch import cli
+    from gfasort_tpu_torch.index import PathIndex
+    from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
+    from gfasort_tpu_torch.ops.sgd import (build_schedule, effective_batch,
+                                           path_linear_sgd_batched)
+    from gfasort_tpu_torch.params import YgsParams
+
+    gfa_out = os.path.join(tmp, "batched.gfa")
+    trace = os.path.join(tmp, "batched_steps.jsonl")
+    g0 = load_gfa_numeric_fast(gfa_in)
+    hashes0 = g0.compute_all_path_hashes()
+    nodes0, edges0 = g0.node_count(), len(g0.edges)
+    pidx = PathIndex.from_graph(g0)
+    params = replace(YgsParams.from_graph(g0).path_sgd,
+                     iter_max=BATCHED_CLI_ITER)
+    B = effective_batch(params)
+    n_rounds = build_schedule(params, B)[3]
+    del g0
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["-i", gfa_in, "-o", gfa_out, "-p", "Y", "--engine",
+                   "batched", "--iter-max", str(BATCHED_CLI_ITER),
+                   "--trace-out", trace, "-v", "0"])
+    t_cli = time.perf_counter() - t0
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc}")
+    with open(trace) as fh:
+        events = [json.loads(line) for line in fh if line.strip()]
+    y_s = next(e["seconds"] for e in events if e["event"] == "SGD")
+    g1 = load_gfa_numeric_fast(gfa_out)
+    if g1.compute_all_path_hashes() != hashes0:
+        raise AssertionError("path hashes changed")
+    if (g1.node_count(), len(g1.edges)) != (nodes0, edges0):
+        raise AssertionError("node or edge count changed")
+    del g1
+
+    # the same engine on the same index, called directly
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = path_linear_sgd_batched(None, params, pidx, device="cuda")
+    t_engine = time.perf_counter() - t0
+    if x.shape != (nodes0,) or not np.isfinite(x).all():
+        raise AssertionError("batched positions are not finite [N]")
+    say("batched", card_line, part="cli", nodes=nodes0,
+        iter_max=BATCHED_CLI_ITER, batch=B, rounds=n_rounds, cli_s=t_cli,
+        y_step_s=y_s, rounds_per_s=n_rounds / y_s,
+        pair_updates_per_s=n_rounds * B / y_s, engine_s=t_engine,
+        pair_updates_per_s_engine=n_rounds * B / t_engine,
+        kernel_launches=launches, path_hashes_preserved=True)
+
+
+def phase_batched(cert, card_line):
+    """The batched engine's order certificates at f64 and f32, the f64
+    run repeated on the card (``torch.equal``), and the 2D batched
+    layout certificate.  Returns the f64 positions."""
+    from gfasort_tpu_torch.bench_util import layout_quality_vs_oracle
+    from gfasort_tpu_torch.ops.keys import key_data
+    from gfasort_tpu_torch.ops.sgd import build_1d_runner, effective_batch
+
+    pidx = cert["pidx"]
+    out = {}
+    for dtype in ("float64", "float32"):
+        p = replace(cert["params"], dtype=dtype, pow_mode="fpp")
+        runs = []
+        for rep in range(2 if dtype == "float64" else 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run, make_x0, n_rounds = build_1d_runner(pidx, p, device="cuda")
+            x = run(make_x0(), key_data(p.seed))
+            torch.cuda.synchronize()
+            runs.append((x, time.perf_counter() - t0))
+        x, secs = runs[-1]
+        same = None
+        if len(runs) == 2:
+            same = bool(torch.equal(runs[0][0], runs[1][0]))
+            if not same:
+                raise AssertionError("two batched runs on the card differ")
+        B = effective_batch(p)
+        certify("batched", card_line, cert, x.cpu().numpy(), secs,
+                dtype=dtype, pow_mode="fpp", batch=B, rounds=n_rounds,
+                rounds_per_s=n_rounds / secs,
+                pair_updates_per_s=n_rounds * B / secs,
+                repeat_torch_equal=same)
+        out[dtype] = x.cpu().numpy().astype(np.float64)
+    t0 = time.perf_counter()
+    q = layout_quality_vs_oracle(dims=2, device="cuda", engine="batched")
+    if q is None:
+        raise AssertionError("the C++ layout oracle cannot be built")
+    ok = q["ratio"] <= STRESS_RATIO_MAX
+    say("batched", card_line, part="layout", seconds=time.perf_counter() - t0,
+        passed=ok, **q)
+    if not ok:
+        raise AssertionError(f"batched layout certificate failed: {q}")
+    return out["float64"]
+
+
+def phase_checkpoint(cert, x_single, tmp, card_line):
+    """The checkpointed batched run (f64) stopped after two segments,
+    resumed, and compared with the single-shot run; then a checkpoint
+    of another seed is refused."""
+    from gfasort_tpu_torch.checkpoint import (fingerprint, load_checkpoint,
+                                              path_linear_sgd_checkpointed,
+                                              save_checkpoint)
+
+    pidx = cert["pidx"]
+    p = replace(cert["params"], dtype="float64", pow_mode="fpp")
+    ck = os.path.join(tmp, "batched.ckpt")
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def stop_after_two(nxt, total):
+        seen.append((nxt, total))
+        if len(seen) == 2:
+            raise Stop()
+
+    t0 = time.perf_counter()
+    try:
+        path_linear_sgd_checkpointed(None, p, ck, pidx, CKPT_SEGMENT,
+                                     stop_after_two, device="cuda")
+        raise AssertionError("the checkpointed run did not stop")
+    except Stop:
+        pass
+    saved = load_checkpoint(ck, fingerprint(p, pidx))
+    if saved is None or saved[1] != 2 * CKPT_SEGMENT:
+        raise AssertionError(f"no checkpoint at round {2 * CKPT_SEGMENT}")
+    x = path_linear_sgd_checkpointed(None, p, ck, pidx, CKPT_SEGMENT,
+                                     device="cuda")
+    secs = time.perf_counter() - t0
+    if not np.array_equal(x, x_single):
+        raise AssertionError("the resumed run differs from the single shot")
+    if os.path.exists(ck):
+        raise AssertionError("the checkpoint was not removed")
+    save_checkpoint(ck, x, 2 * CKPT_SEGMENT, fingerprint(p, pidx))
+    try:
+        load_checkpoint(ck, fingerprint(replace(p, seed=p.seed + 1), pidx))
+        raise AssertionError("a checkpoint of another run was accepted")
+    except ValueError:
+        pass
+    os.unlink(ck)
+    say("checkpoint", card_line, segment_rounds=CKPT_SEGMENT,
+        progress=seen, seconds=secs, equals_single_shot=True,
+        other_run_refused=True)
 
 
 def phase_quality_nd(card_line):
@@ -707,7 +954,6 @@ def main() -> int:
     kres_nd = phase_kernel_nd(nd_plans, bench.total_steps,
                               bench.step_pos.astype(np.float32), card_line)
     sres, sweep_launches = phase_sweep_apply(bench_plan, bench, card_line)
-    del bench
     probe = phase_shift_probe(card_line)
 
     n, paths, steps = BENCH_SHAPE
@@ -720,7 +966,15 @@ def main() -> int:
         launches = phase_main(gfa_in, tmp, card_line)
         launches_nd = phase_layout(gfa_in, tmp, card_line)
         phase_layout_parts(gfa_in, card_line)
-    phase_quality(card_line)
+        phase_batched_cli(gfa_in, tmp, card_line)
+        cert = phase_quality(card_line)
+        phase_sweep_mode("sweep_f64", bench, cert, card_line, "float64",
+                         "hash")
+        phase_sweep_mode("sweep_threefry", bench, cert, card_line, "float32",
+                         "threefry")
+        del bench
+        x_batched = phase_batched(cert, card_line)
+        phase_checkpoint(cert, x_batched, tmp, card_line)
     phase_quality_nd(card_line)
 
     bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")

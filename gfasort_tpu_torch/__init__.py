@@ -5,10 +5,12 @@ imports nothing of it.  It carries its own copies of the host layers
 (graph, index, params, io, algos, trace, the exact oracle and its C++
 twin in :mod:`.native`, the sweep policy) and ports the device side:
 the 1D offset-sweep engine (:mod:`.ops.sweep`), the nD layout sweep
-engine (:mod:`.ops.sweep_nd`), their sampler and node consensus, and
-the bucket-apply kernels written by hand in CUDA C++ for Hopper
-(``csrc/bucket_apply.cu``, ``csrc/dense_apply_nd.cu``).  It imports
-``torch`` and never ``jax``.  Entry points:
+engine (:mod:`.ops.sweep_nd`), their sampler (hash or threefry draws,
+f32 or f64) and node consensus, the bucket-apply kernels written by
+hand in CUDA C++ for Hopper (``csrc/bucket_apply.cu``,
+``csrc/dense_apply_nd.cu``), and the batched engine (:mod:`.ops.sgd`)
+with its checkpointed form (:mod:`.checkpoint`).  It imports ``torch``
+and never ``jax``.  Entry points:
 :func:`.pipeline.run_pipeline` and ``python -m gfasort_tpu_torch``.
 """
 

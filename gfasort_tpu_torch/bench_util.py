@@ -103,11 +103,15 @@ def layout_quality_vs_oracle(
     dims: int = 2,
     *,
     device="cuda",
+    engine: str = "sweep",
     **sweep_kw,
 ) -> Optional[dict]:
-    """Layout certificate: sampled stress of the port's sweep layout vs
-    the C++ oracle layout on the same workload and from the same initial
-    coordinates.  None when the C++ oracle cannot be built."""
+    """Layout certificate: sampled stress of the port's layout vs the C++
+    oracle layout on the same workload and from the same initial
+    coordinates.  ``engine``: ``"sweep"`` (f32, ``pow_mode="fast"``,
+    ``sweep_kw`` passed on) or ``"batched"`` (f32 states, the engine's
+    default ``pow_mode="fpp"``).  None when the C++ oracle cannot be
+    built."""
     from .native import available, path_linear_sgd_layout_native
     from .ops.exact import calculate_layout_stress_pidx, layout_initial_coords
     from .ops.sweep_nd import path_linear_sgd_layout_sweep
@@ -120,9 +124,16 @@ def layout_quality_vs_oracle(
     lp = replace(lp, dtype="float32", pow_mode="fast")
     init = layout_initial_coords(pidx, dims, lp.seed)
 
-    lay_s = path_linear_sgd_layout_sweep(
-        None, lp, pidx, init_coords=init, device=device, **sweep_kw
-    )
+    if engine == "batched":
+        from .ops.sgd import path_linear_sgd_layout_batched
+
+        lay_s = path_linear_sgd_layout_batched(
+            None, replace(lp, pow_mode="fpp"), pidx, init_coords=init,
+            device=device)
+    else:
+        lay_s = path_linear_sgd_layout_sweep(
+            None, lp, pidx, init_coords=init, device=device, **sweep_kw
+        )
     lo = replace(lp, dtype="float64", pow_mode="fpp")
     lay_o = path_linear_sgd_layout_native(None, lo, pidx, init_coords=init)
 

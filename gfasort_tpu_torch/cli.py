@@ -4,8 +4,8 @@ Usage::
 
     python -m gfasort_tpu_torch -i in.gfa -o out.gfa [-p sYgs] [--iter-max 100]
         [-t 1] [-v 1] [--dimensions 2] [--layout-out layout.tsv]
-        [--layout-iter 30] [--engine auto|exact|sweep] [--seed N]
-        [--trace-out steps.jsonl] [--device cuda]
+        [--layout-iter 30] [--engine auto|exact|sweep|batched] [--seed N]
+        [--batch B] [--trace-out steps.jsonl] [--device cuda]
 
 The flags are those of ``gfasort_tpu.cli`` that the port serves.  The
 device engine runs on ``--device`` (default ``cuda``); with no CUDA
@@ -48,11 +48,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Layout TSV output path (L step)")
     p.add_argument("--layout-iter", type=int, default=30,
                    help="Layout iterations (L step)")
-    p.add_argument("--engine", default="auto", choices=["auto", "exact", "sweep"],
+    p.add_argument("--engine", default="auto",
+                   choices=["auto", "exact", "sweep", "batched"],
                    help="SGD engine: exact oracle / offset-sweep on the "
-                        "device / auto (oracle up to 200k nodes)")
+                        "device / batched rounds on the device / auto "
+                        "(oracle up to 200k nodes)")
     p.add_argument("--seed", type=int, default=None,
                    help="Override the fixed seed (default 9399220)")
+    p.add_argument("--batch", type=int, default=None,
+                   help="Batched engine round width (terms per round)")
     p.add_argument("--trace-out", default=None,
                    help="Write per-step timing events as JSON lines")
     p.add_argument("--device", default="cuda",
@@ -94,6 +98,7 @@ def main(argv=None) -> int:
         layout_iter=args.layout_iter,
         engine=args.engine,
         seed=args.seed,
+        batch=args.batch,
         verbose=args.verbose,
         log=log,
         threads=args.threads,

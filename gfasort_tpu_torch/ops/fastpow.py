@@ -6,9 +6,10 @@ vectorized.
 linear interpolation on the high 32 bits of the IEEE-754 double, magic
 constant 1072632447).  It shapes the Zipf jump distribution, so
 distributional parity with the reference requires reproducing the bit
-manipulation exactly (SURVEY.md §2 row 12, §8.4).  This is the numpy
-version (vectorized over ``a``; used by the oracle and for table
-precompute).
+manipulation exactly (SURVEY.md §2 row 12, §8.4).  The numpy version
+(vectorized over ``a``) serves the oracle and the table precompute; the
+torch version :func:`fast_precise_pow_torch` serves the batched engine's
+sampler on the device (``ops/sgd.py``, ``pow_mode="fpp"``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 __all__ = [
     "fast_precise_pow",
     "fast_precise_pow_np",
+    "fast_precise_pow_torch",
     "zeta_table",
     "zeta_index",
 ]
@@ -52,6 +54,32 @@ def fast_precise_pow_np(a, b: float):
 def fast_precise_pow(a: float, b: float) -> float:
     """Scalar convenience wrapper."""
     return float(fast_precise_pow_np(np.float64(a), b))
+
+
+def fast_precise_pow_torch(a, b: float, e: int):
+    """Torch ``fast_precise_pow`` where ``e = trunc(b)`` is static (the
+    squaring loop unrolls in Python), as the JAX package's
+    ``fast_precise_pow_jax``.  ``a``: f64 tensor; ``b``: a Python float
+    (f64).  The bit hack runs on the int64 view of ``a``: its high word
+    as int32, the interpolated word sign-extended and shifted back up."""
+    import torch
+
+    a = a.to(torch.float64)
+    high = (a.view(torch.int64) >> 32).to(torch.int32)
+    new_high = ((b - e) * (high.to(torch.float64) - 1072632447.0)
+                + 1072632447.0).to(torch.int32)
+    # new_high << 32 as an int64: a signed word times 2^32 cannot overflow
+    frac = (new_high.to(torch.int64) * (1 << 32)).view(torch.float64)
+
+    base = a
+    r = torch.ones_like(a)
+    exp = e
+    while exp != 0:
+        if exp & 1:
+            r = r * base
+        base = base * base
+        exp >>= 1
+    return r * frac
 
 
 def zeta_table(space: int, space_max: int, quant_step: int, theta: float) -> np.ndarray:

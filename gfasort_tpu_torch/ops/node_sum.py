@@ -55,7 +55,7 @@ def _row_sums(g: torch.Tensor, run: Optional[int]) -> torch.Tensor:
 class GatherConsensus:
     class_idx: tuple            # int64 [n_c, width] step indices, sentinel S
     node_slot: torch.Tensor     # int64 [S] step -> slot in degree-sorted order
-    inv_cnt: torch.Tensor       # f32 [NL] 1 / degree of each slot's node
+    inv_cnt: torch.Tensor       # [NL] 1 / degree of each slot's node
     slot_node: torch.Tensor     # int64 [NL] node index of each slot
     run: Optional[int] = None   # terms per summed run; None: one run
 
@@ -80,9 +80,11 @@ class GatherConsensus:
 
 
 def build_gather_consensus(step_node: np.ndarray, n_nodes: int, device,
-                           run: Optional[int] = None) -> GatherConsensus:
+                           run: Optional[int] = None,
+                           dtype=np.float32) -> GatherConsensus:
     """Class tables for a static step->node map, uploaded to ``device``;
-    ``run`` as in :class:`GatherConsensus`."""
+    ``run`` as in :class:`GatherConsensus`; ``dtype``: that of the
+    positions (f32 or f64), in which ``1 / degree`` is rounded."""
     step_node = np.asarray(step_node, dtype=np.int64)
     S = int(step_node.shape[0])
     cnt = np.bincount(step_node, minlength=n_nodes)
@@ -113,7 +115,7 @@ def build_gather_consensus(step_node: np.ndarray, n_nodes: int, device,
     return GatherConsensus(
         class_idx=tuple(up(ix) for ix in class_idx),
         node_slot=up(slot_of_node[step_node]),
-        inv_cnt=up((1.0 / np.maximum(cnt[slot_node], 1)).astype(np.float32)),
+        inv_cnt=up((1.0 / np.maximum(cnt[slot_node], 1)).astype(dtype)),
         slot_node=up(slot_node),
         run=run,
     )

@@ -7,9 +7,15 @@ step (``sweep_common.sample_blocks``), applies the pair updates of every
 bucket with k <= KMAX in one bucket-apply kernel launch, the larger
 offsets by roll passes, and combines ``xs + dsum / max(csum, 1)``.
 Every ``consensus_every`` sweeps the node consensus averages the steps
-of each node.  The schedule runs eagerly from Python; the JAX engine's
-dk tables and dispatch chunking were TPU workarounds that do not change
-results, and are not ported.
+of each node.  The schedule runs eagerly from Python.  The JAX engine's
+dk tables were a TPU workaround that changes no result, and are not
+ported.  Its dispatch chunking is not ported either, but it does change
+results: the JAX engine executes whole dispatches of consensus periods,
+so where the chunk does not divide the periods it runs more sweeps (at
+the terminal eta) and more consensus runs.  The plan reproduces that
+count (``SweepPlan.n_exec``).  At float64 every bucket runs as a roll
+pass, the sampler draws threefry bits and works in f64, and the
+consensus sums in f64, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from .node_sum import JAX_ROW_RUN, build_gather_consensus
 from .sweep_common import (SamplerConsts, pack_choices_words, sample_blocks,
                            sampler_consts, sweep_rng)
 from .sweep_dense import bucket_apply
-from .sweep_plan import PhasePlan, make_sweep_plan
+from .sweep_plan import PhasePlan, make_sweep_plan, torch_dtype
 from .sweep_policy import SweepResult
 
 __all__ = ["apply_choices", "build_sweep_runner", "path_linear_sgd_sweep",
@@ -63,13 +69,14 @@ def _roll_half(xs, pos, eta_t, shift: int, pairs, iota):
 
 def sweep_once(xs, pos, rank, cnt, phase: PhasePlan, consts: SamplerConsts,
                key_words, eta: float, cooling: bool, proposals: int,
-               active_frac: float, snap: str = "stoch"):
+               active_frac: float, snap: str = "stoch", rng: str = "hash"):
     """One sweep; returns the new xs.  ``consts``: the phase's sampler
     constants for ``cooling``; ``key_words``: the sweep's ``(b2, b1)``
-    words per proposal (a row of ``sweep_key_table``)."""
+    words per proposal (a row of ``sweep_key_table``); ``rng``: the
+    ``sweep_rng`` mode."""
     S = xs.shape[0]
-    rng = (sweep_rng(w, S, xs.device) for w in key_words)
-    sidxs = sample_blocks(consts, rng, cooling, rank, cnt, active_frac, snap)
+    draws = (sweep_rng(w, S, xs.device, rng, xs.dtype) for w in key_words)
+    sidxs = sample_blocks(consts, draws, cooling, rank, cnt, active_frac, snap)
     return apply_choices(xs, pos, sidxs, phase, eta, proposals)
 
 
@@ -113,21 +120,23 @@ def build_sweep_runner(
     proposals: Optional[int] = None,
     *,
     device="cuda",
-    snap: str = "stoch",
 ):
     """Build the runner once.  Returns (run_fn, arrays, make_state, info):
     ``run_fn(xs, x_node_init, base_key, *arrays)`` runs the whole
     schedule and returns the final node positions [N] on the device;
     ``base_key`` is the u32 [2] key data (``ops.keys.key_data(seed)``).
-    ``snap`` is the JAX package's ``GFASORT_SNAP`` (default "stoch")."""
+    The environment knobs come from ``ops.env.sweep_knobs``, read once
+    by the plan."""
     dev = resolve_device(device)
     plan = make_sweep_plan(pidx, params, per_octave, consensus_every,
                            active_frac, rotate, dense_upto, proposals)
+    npd = np.dtype(plan.dtype).type
+    tdt = torch_dtype(plan.dtype)
     gc = build_gather_consensus(pidx.step_node_idx, pidx.num_nodes, dev,
-                                run=JAX_ROW_RUN)
-    arrays = static_arrays(pidx, dev)
+                                run=JAX_ROW_RUN, dtype=npd)
+    arrays = static_arrays(pidx, dev, npd)
     # [phase][cooling]
-    consts = [[sampler_consts(ph, c, dev) for c in (False, True)]
+    consts = [[sampler_consts(ph, c, dev, tdt) for c in (False, True)]
               for ph in plan.phases]
     ce = plan.consensus_every
     P = plan.proposals
@@ -139,13 +148,13 @@ def build_sweep_runner(
             i, eta, cooling = plan.sweep(e)
             xs = sweep_once(xs, pos, rank, cnt, plan.phases[i],
                             consts[i][cooling], keys[e], eta, cooling, P,
-                            plan.active_frac, snap)
+                            plan.active_frac, plan.knobs.snap, plan.knobs.rng)
             if (e + 1) % ce == 0:
                 xs, xn = gc(xs)
         return gc.to_node_order(xn, x_node_init)
 
     def make_state(x0=None):
-        return initial_state(pidx, x0, dev)
+        return initial_state(pidx, x0, dev, npd)
 
     info = dict(plan.info(), consensus="gather", consensus_coverage=None)
     return run, arrays, make_state, info
@@ -165,7 +174,6 @@ def path_linear_sgd_sweep(
     return_info: bool = False,
     *,
     device="cuda",
-    snap: str = "stoch",
 ):
     """1D path SGD via offset sweeps: node positions [N] (f64 numpy),
     None when no path has two steps; same contract as the JAX
@@ -177,7 +185,7 @@ def path_linear_sgd_sweep(
         return None
     run, arrays, make_state, info = build_sweep_runner(
         pidx, params, per_octave, consensus_every, active_frac, rotate,
-        dense_upto, proposals, device=device, snap=snap,
+        dense_upto, proposals, device=device,
     )
     xs0, x_node0 = make_state(x0)
     x_final = run(xs0, x_node0, key_data(params.seed), *arrays)

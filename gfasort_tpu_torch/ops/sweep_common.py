@@ -1,11 +1,13 @@
 """The sweep engine's per-sweep sampler in plain PyTorch.
 
-Counterparts of ``gfasort_tpu/ops/sweep_common.py``: the murmur-hash RNG
-(``sweep_rng``, hash mode), the P-proposal sampler (``sample_blocks``,
-the shared-chain form that the JAX tests hold bit-identical to P
-single-proposal calls) and the 8-bit choice packing.  The JAX code is
-XLA, not a Pallas kernel, so plain tensor code is its port.  Only f32
-and the hash RNG are here; the f64 threefry branch is not ported.
+Counterparts of ``gfasort_tpu/ops/sweep_common.py``: the per-sweep
+draws (``sweep_rng``: the murmur-hash RNG, or the ``jax.random``
+threefry draws of :mod:`.jrandom` under ``GFASORT_SWEEP_RNG=threefry``
+and always in f64), the P-proposal sampler (``sample_blocks``, the
+shared-chain form that the JAX tests hold bit-identical to P
+single-proposal calls; its Zipf maths runs in the run's dtype, f32 or
+f64) and the 8-bit choice packing.  The JAX code is XLA, not a Pallas
+kernel, so plain tensor code is its port.
 
 Unsigned 32-bit arithmetic runs in int64 masked to 32 bits: torch's
 uint32 supports few ops, and a right shift of an int32 is arithmetic.
@@ -19,6 +21,8 @@ import torch
 
 import numpy as np
 
+from . import jrandom
+from .keys import split
 from .sweep_plan import PhasePlan
 
 __all__ = ["INACTIVE", "INACTIVE8", "PACKED_INACTIVE", "sweep_rng",
@@ -57,9 +61,20 @@ def _mix(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def sweep_rng(words, S: int, device):
-    """Hash-mode per-sweep randomness from a key's ``(b2, b1)`` words:
-    (bits int64 [S] holding u32 values, u f32 [S] in [0, 1))."""
+def sweep_rng(words, S: int, device, mode: str = "hash",
+              dtype=torch.float32):
+    """Per-sweep randomness from a key's ``(b2, b1)`` words: (bits int64
+    [S] holding u32 values, u [S] in [0, 1) of ``dtype``).  ``mode``
+    ``hash`` (f32 only) mixes the lane counter with the words;
+    ``threefry`` (always taken in f64) splits the key in two and draws
+    ``bits(k1, (S,))`` and ``uniform(k2, (S,), dtype)`` as
+    ``jax.random`` does."""
+    if mode == "threefry" or dtype == torch.float64:
+        k1, k2 = split(np.asarray(words, dtype=np.uint32), 2)
+        return (jrandom.bits(k1, (S,), device),
+                jrandom.uniform(k2, (S,), dtype, device))
+    if mode != "hash":
+        raise ValueError(f"unknown sweep RNG mode {mode!r}")
     b2, b1 = (int(w) for w in words)
     i = torch.arange(S, dtype=torch.int64, device=device)
     h = _mix((i + b1) & _M32)
@@ -73,25 +88,29 @@ def sweep_rng(words, S: int, device):
 @dataclass(frozen=True)
 class SamplerConsts:
     """One phase's sampler constants for one cooling state, on the
-    device.  Built once per run: a host-to-device copy in the sweep loop
-    would synchronise the stream every sweep."""
+    device, in the run's dtype.  Built once per run: a host-to-device
+    copy in the sweep loop would synchronise the stream every sweep."""
 
     offs: torch.Tensor          # i32 [K]
-    zeta: torch.Tensor          # f32 [K]
-    eta_z: torch.Tensor         # f32 [K]
-    zeta2theta: torch.Tensor    # f32 []
-    alpha: torch.Tensor         # f32 []
+    zeta: torch.Tensor          # [K]
+    eta_z: torch.Tensor         # [K]
+    zeta2theta: torch.Tensor    # []
+    alpha: torch.Tensor         # []
     space: int
 
 
-def sampler_consts(phase: PhasePlan, cooling: bool, device) -> SamplerConsts:
+def sampler_consts(phase: PhasePlan, cooling: bool, device,
+                   dtype=torch.float32) -> SamplerConsts:
+    """The plan's f64 constants rounded to ``dtype``; alpha computed in
+    ``dtype``, as the JAX sampler does."""
     c = int(bool(cooling))
+    npd = np.float32 if dtype == torch.float32 else np.float64
     return SamplerConsts(
         offs=torch.as_tensor(phase.offs, device=device),
-        zeta=torch.as_tensor(phase.zeta[c], device=device),
-        eta_z=torch.as_tensor(phase.eta_z[c], device=device),
-        zeta2theta=torch.as_tensor(phase.zeta2theta[c], device=device),
-        alpha=torch.as_tensor(phase.alpha[c], device=device),
+        zeta=torch.as_tensor(phase.zeta[c].astype(npd), device=device),
+        eta_z=torch.as_tensor(phase.eta_z[c].astype(npd), device=device),
+        zeta2theta=torch.as_tensor(npd(phase.zeta2theta[c]), device=device),
+        alpha=torch.as_tensor(npd(phase.alpha(cooling, npd)), device=device),
         space=phase.space,
     )
 
@@ -108,8 +127,9 @@ def snap_idx_track(offs: torch.Tensor, z: torch.Tensor, want_hi: bool):
 
 def zipf_core(u, jump_space, zeta, eta_z, zeta2theta, alpha):
     """Inverse-CDF Zipf draw from pre-selected bucket constants
-    (``_zipf_core``): f32 math, a NaN guard, truncation to int32."""
-    n = torch.clamp_min(jump_space, 1).to(torch.float32)
+    (``_zipf_core``): maths in ``u``'s dtype, a NaN guard, truncation to
+    int32."""
+    n = torch.clamp_min(jump_space, 1).to(u.dtype)
     uz = u * zeta
     arg = torch.clamp_min(eta_z * u - eta_z + 1.0, 1e-30)
     general = 1.0 + n * torch.exp(alpha * torch.log(arg))
@@ -130,7 +150,9 @@ def sample_blocks(consts: SamplerConsts, bu_pairs, cooling: bool,
     ``bu_pairs`` yields one (bits, u) pair per proposal, so a caller may
     hand a generator and keep one proposal's RNG in memory at a time.
     ``rank``/``cnt`` are int32 [S]; ``snap`` is ``"stoch"`` (the
-    mean-preserving stochastic snap, the JAX default) or ``"down"``."""
+    mean-preserving stochastic snap, the JAX default) or ``"down"``.
+    The float maths runs in the dtype of the draws' ``u`` (that of
+    ``consts``)."""
     if snap not in ("stoch", "down"):
         raise ValueError(f"unknown snap mode {snap!r}")
     offs = consts.offs
@@ -165,15 +187,15 @@ def sample_blocks(consts: SamplerConsts, bu_pairs, cooling: bool,
         eta_z = torch.where(backward, shared[0][2], shared[1][2])
         z_zipf = zipf_core(u, jump_space, zeta, eta_z, consts.zeta2theta,
                            consts.alpha)
-        z_unif = 1 + (u * torch.clamp_min(avail, 1).to(torch.float32)).to(
-            torch.int32)
+        fdt = u.dtype
+        z_unif = 1 + (u * torch.clamp_min(avail, 1).to(fdt)).to(torch.int32)
         z = torch.where(use_zipf, z_zipf, z_unif)
         if snap == "stoch":
             oidx, off_lo_i, off_hi = snap_idx_track(offs, z, True)
-            off_lo = off_lo_i.to(torch.float32)
-            u2 = ((bits >> 20) & 0x1FF).to(torch.float32) * (1.0 / 512.0)
-            qfrac = (z.to(torch.float32) - off_lo) / torch.clamp_min(
-                off_hi.to(torch.float32) - off_lo, 1.0)
+            off_lo = off_lo_i.to(fdt)
+            u2 = ((bits >> 20) & 0x1FF).to(fdt) * (1.0 / 512.0)
+            qfrac = (z.to(fdt) - off_lo) / torch.clamp_min(
+                off_hi.to(fdt) - off_lo, 1.0)
             promote = (u2 < qfrac) & (off_hi <= avail)
             oidx = torch.where(promote, oidx + 1, oidx)
             off_sel = torch.where(promote, off_hi, off_lo_i)

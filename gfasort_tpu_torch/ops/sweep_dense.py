@@ -17,6 +17,7 @@ PACKED_INACTIVE (P > 1) choice word.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .sweep_common import INACTIVE, PACKED_INACTIVE, unpack_choice
@@ -41,14 +42,13 @@ def _fields(words, proposals: int):
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded square root of an f32 tensor, on every
-    device.  CUDA's f32 sqrt is the IEEE one; PyTorch's vectorised f32
-    sqrt on the CPU is not (1 ulp off for some inputs), so there the
-    f64 root is rounded to f32, which is correct since f64 carries more
-    than 2 * 24 + 2 bits."""
+    """The correctly rounded square root of an f32 or f64 tensor, on
+    every device.  CUDA's sqrt is the IEEE one; PyTorch's vectorised
+    sqrt on the CPU is not (1 ulp off for some inputs, in f32 and in
+    f64), so there numpy's IEEE sqrt computes it."""
     if x.device.type == "cuda":
         return torch.sqrt(x)
-    return torch.sqrt(x.double()).to(x.dtype)
+    return torch.from_numpy(np.sqrt(x.contiguous().numpy()))
 
 
 def _shift(a: torch.Tensor, k: int, fill) -> torch.Tensor:

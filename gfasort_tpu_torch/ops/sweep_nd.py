@@ -10,8 +10,10 @@ nD bucket-apply kernel launch and the larger offsets by roll passes, and
 moves the chosen end's rows by ``acc / max(wacc, 1)``.  Every
 ``consensus_every`` sweeps the node consensus averages each (node, end,
 dimension) row.  The schedule runs eagerly from Python, as in the 1D
-engine; the JAX engine's dispatch chunking and runner cache are not
-ported.
+engine, executing the sweeps the JAX engine's dispatch chunking
+executes (``SweepPlan.n_exec``); its runner cache is not ported.  At
+float64 every bucket runs as a roll pass and the sampler draws threefry
+bits, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from .node_sum import build_gather_consensus
 from .sweep_common import (SamplerConsts, pack_choices_words, sample_blocks,
                            sampler_consts, sweep_rng)
 from .sweep_dense import dense_apply_nd, sqrt_rn
-from .sweep_plan import PhasePlan, make_layout_plan
+from .sweep_plan import PhasePlan, make_layout_plan, torch_dtype
 
 __all__ = ["build_sweep_nd_runner", "nd_sweep_once",
            "path_linear_sgd_layout_sweep"]
@@ -73,17 +75,19 @@ def _roll_half_nd(my_pos, my_c, eta_t, shift: int, pairs, iota):
 
 def nd_sweep_once(cs, pos, rank, cnt, rev, length, phase: PhasePlan,
                   consts: SamplerConsts, key_words, eta: float, cooling: bool,
-                  proposals: int, active_frac: float):
+                  proposals: int, active_frac: float, snap: str = "stoch",
+                  rng: str = "hash"):
     """One nD sweep; returns the new ``cs [2D, S]``.  ``consts``: the
     phase's sampler constants for ``cooling``; ``key_words``: the
     sweep's ``(b2, b1)`` words per proposal (a row of
-    ``sweep_key_table``)."""
+    ``sweep_key_table``); ``snap``/``rng``: the sampler's snap and the
+    ``sweep_rng`` mode."""
     S = pos.shape[0]
     D = cs.shape[0] // 2
-    first = sweep_rng(key_words[0], S, cs.device)
-    rest = (sweep_rng(w, S, cs.device) for w in key_words[1:])
+    first = sweep_rng(key_words[0], S, cs.device, rng, cs.dtype)
+    rest = (sweep_rng(w, S, cs.device, rng, cs.dtype) for w in key_words[1:])
     sidxs = sample_blocks(consts, itertools.chain([first], rest), cooling,
-                          rank, cnt, active_frac)
+                          rank, cnt, active_frac, snap)
     # the per-step end coin, from proposal 0's bits: the other end moves
     # the step's path position by its node's length, and the end index
     # is coin XOR orientation
@@ -142,11 +146,13 @@ def build_sweep_nd_runner(
     dev = resolve_device(device)
     plan = make_layout_plan(pidx, params, per_octave, consensus_every,
                             active_frac, rotate, dense_upto, proposals)
-    gc = build_gather_consensus(pidx.step_node_idx, pidx.num_nodes, dev)
-    arrays = layout_static_arrays(pidx, dev)
+    npd = np.dtype(plan.dtype).type
+    gc = build_gather_consensus(pidx.step_node_idx, pidx.num_nodes, dev,
+                                dtype=npd)
+    arrays = layout_static_arrays(pidx, dev, npd)
     # [phase][cooling]
-    consts = [[sampler_consts(ph, c, dev) for c in (False, True)]
-              for ph in plan.phases]
+    consts = [[sampler_consts(ph, c, dev, torch_dtype(plan.dtype))
+               for c in (False, True)] for ph in plan.phases]
     ce = plan.consensus_every
     P = plan.proposals
 
@@ -157,13 +163,14 @@ def build_sweep_nd_runner(
             i, eta, cooling = plan.sweep(e)
             cs = nd_sweep_once(cs, pos, rank, cnt, rev, length,
                                plan.phases[i], consts[i][cooling], keys[e],
-                               eta, cooling, P, plan.active_frac)
+                               eta, cooling, P, plan.active_frac,
+                               plan.knobs.snap, plan.knobs.rng)
             if (e + 1) % ce == 0:
                 cs, xn = gc(cs)
         return gc.to_node_order(xn, cs_node_init)
 
     def make_state(init_node_coords: np.ndarray):
-        return layout_state(pidx, init_node_coords, plan.dims, dev)
+        return layout_state(pidx, init_node_coords, plan.dims, dev, npd)
 
     return run, arrays, make_state, plan.layout_info()
 

@@ -7,7 +7,8 @@ set and its rotation phases, the consensus period, the learning-rate
 schedule, the split of each phase's buckets between the hand-written
 bucket kernel (k <= KMAX) and the roll passes (k > KMAX), and the
 sampler's per-bucket Zipf constants.  The policy functions are the
-port's copies in :mod:`.sweep_policy`.
+port's copies in :mod:`.sweep_policy`; the environment knobs the JAX
+engines read come from :func:`.env.sweep_knobs`, read once per plan.
 """
 
 from __future__ import annotations
@@ -18,18 +19,30 @@ import numpy as np
 
 from ..index import PathIndex
 from ..params import LayoutSGDParams, PathSGDParams
+from .env import KMAX_DEFAULT, SweepKnobs, sweep_knobs
 from .fastpow import fast_precise_pow, zeta_table
 from .schedule import eta_schedule
 from .sweep_policy import (auto_sweep_config, fit_consensus_period,
                            offset_set, phase_structure)
 
 __all__ = ["KMAX", "PhasePlan", "SweepPlan", "make_sweep_plan",
-           "make_layout_plan", "bucket_consts"]
+           "make_layout_plan", "bucket_consts", "executed_sweeps",
+           "torch_dtype"]
 
-# Largest offset handed to the bucket-apply kernel: the JAX engine's
-# default ``sweep_dense.kernel_kmax()``.  Bucket order and therefore the
-# f32 summation order follow from it, so parity needs the same split.
-KMAX = 1024
+# Largest offset handed to the bucket-apply kernel by default: the JAX
+# engine's ``sweep_dense.kernel_kmax()`` (``GFASORT_KERNEL_KMAX`` moves
+# it).  Bucket order and therefore the f32 summation order follow from
+# it, so parity needs the same split.
+KMAX = KMAX_DEFAULT
+
+_DTYPES = {"float32": np.float32, "float64": np.float64}
+
+
+def torch_dtype(name: str):
+    """The torch dtype of a params ``dtype`` name."""
+    import torch
+
+    return {"float32": torch.float32, "float64": torch.float64}[name]
 
 # The theta the sampler switches to in cooling sweeps (sweep_common).
 COOL_THETA = 0.001
@@ -61,17 +74,24 @@ def bucket_consts(offs: np.ndarray, params: PathSGDParams, zetas: np.ndarray,
 
 @dataclass(frozen=True)
 class PhasePlan:
-    """One rotation phase: its offset set, bucket split and the f32
-    sampler constants, each indexed ``[cooling]`` (0 = warm, 1 = cool)."""
+    """One rotation phase: its offset set, bucket split and the sampler
+    constants in f64, each indexed ``[cooling]`` (0 = warm, 1 = cool);
+    ``sweep_common.sampler_consts`` rounds them to the run's dtype."""
 
     offs: np.ndarray            # i32 [K_p]
-    kernel_buckets: tuple       # ((k, ki), ...) with k <= KMAX
-    roll_buckets: tuple         # ((k, ki), ...) with k > KMAX
-    zeta: np.ndarray            # f32 [2, K_p]
-    eta_z: np.ndarray           # f32 [2, K_p]
-    zeta2theta: np.ndarray      # f32 [2]
-    alpha: np.ndarray           # f32 [2], 1 / (1 - theta) rounded in f32
+    kernel_buckets: tuple       # ((k, ki), ...) with k <= kmax
+    roll_buckets: tuple         # ((k, ki), ...) the rest
+    zeta: np.ndarray            # f64 [2, K_p]
+    eta_z: np.ndarray           # f64 [2, K_p]
+    zeta2theta: np.ndarray      # f64 [2]
+    theta: np.ndarray           # f64 [2]
     space: int                  # params.space (jump spaces clamp to it)
+
+    def alpha(self, cooling: bool, dtype) -> float:
+        """1 / (1 - theta), computed in ``dtype`` as the JAX sampler does
+        on the device."""
+        one = dtype(1.0)
+        return float(one / (one - dtype(self.theta[int(bool(cooling))])))
 
 
 @dataclass(frozen=True)
@@ -82,23 +102,19 @@ class SweepPlan:
     offs: np.ndarray            # the full offset set
     rotate: int
     consensus_every: int        # after the rotation round-up and the fit
-    dense_kernel: bool          # any phase hands buckets to the kernel
+    dense_kernel: bool          # the JAX engine's ``use_dense`` (1D)
     phases: tuple               # PhasePlan per rotation phase
-    sweep_eta: np.ndarray       # f32 [n_sweeps]
+    sweep_eta: np.ndarray       # [n_sweeps] in the run's dtype
     sweep_cool: np.ndarray      # bool [n_sweeps]
     updates_per_sweep: int
+    n_exec: int                 # executed sweeps (:func:`executed_sweeps`)
+    dtype: str = "float32"
+    knobs: SweepKnobs = SweepKnobs()
     dims: int = 1               # coordinates per node end (1 = the 1D sort)
 
     @property
     def n_sweeps(self) -> int:
         return len(self.sweep_eta)
-
-    @property
-    def n_exec(self) -> int:
-        """Sweeps that run: whole consensus periods, the padding ones
-        at the clamped (terminal) eta."""
-        ce = self.consensus_every
-        return -(-self.n_sweeps // ce) * ce
 
     def sweep(self, e: int):
         """(phase index, eta, cooling) of executed sweep ``e``.  The key
@@ -136,11 +152,22 @@ class SweepPlan:
             "n_offsets", "rotate", "consensus_every")}
 
 
+def executed_sweeps(n_sweeps: int, ce: int, S: int, budget: int) -> int:
+    """Sweeps the JAX engines execute: whole dispatches of
+    ``chunk_periods`` consensus periods, ``chunk_periods`` the element
+    ``budget`` over S x ce (at least 1, at most all periods).  The sweeps
+    past the schedule run at the clamped (terminal) eta with their own
+    keys, and each extra period ends in a consensus."""
+    n_periods = -(-n_sweeps // ce)
+    chunk = max(1, min(n_periods, budget // max(S * ce, 1)))
+    return -(-n_periods // chunk) * chunk * ce
+
+
 def _phase_plan(offs_p: np.ndarray, params: PathSGDParams, zetas: np.ndarray,
-                dense: bool, proposals: int) -> PhasePlan:
+                dense: bool, kmax: int, proposals: int) -> PhasePlan:
     offs_p = np.asarray(offs_p, dtype=np.int32)
     kernel = tuple((int(k), ki) for ki, k in enumerate(offs_p.tolist())
-                   if dense and k <= KMAX)
+                   if dense and k <= kmax)
     served = {ki for _, ki in kernel}
     roll = tuple((int(k), ki) for ki, k in enumerate(offs_p.tolist())
                  if ki not in served)
@@ -148,25 +175,16 @@ def _phase_plan(offs_p: np.ndarray, params: PathSGDParams, zetas: np.ndarray,
         raise ValueError("packed choices need bucket indices < 64")
     warm = bucket_consts(offs_p, params, zetas, float(params.theta))
     cool = bucket_consts(offs_p, params, zetas, COOL_THETA)
-    thetas = np.array([params.theta, COOL_THETA], dtype=np.float32)
-    one = np.float32(1.0)
     return PhasePlan(
         offs=offs_p,
         kernel_buckets=kernel,
         roll_buckets=roll,
-        zeta=np.array([warm[0], cool[0]], dtype=np.float32),
-        eta_z=np.array([warm[1], cool[1]], dtype=np.float32),
-        zeta2theta=np.array([warm[2], cool[2]], dtype=np.float32),
-        alpha=one / (one - thetas),
+        zeta=np.array([warm[0], cool[0]]),
+        eta_z=np.array([warm[1], cool[1]]),
+        zeta2theta=np.array([warm[2], cool[2]]),
+        theta=np.array([float(params.theta), COOL_THETA]),
         space=int(params.space),
     )
-
-
-def _check_dtype(params) -> None:
-    if params.dtype != "float32":
-        raise NotImplementedError(
-            "the float64 sweep (threefry sampler) is not ported yet "
-            "(ROADMAP queue 1: f64/threefry sampler)")
 
 
 def _knobs(auto: dict, per_octave, consensus_every, active_frac, rotate,
@@ -185,10 +203,15 @@ def _knobs(auto: dict, per_octave, consensus_every, active_frac, rotate,
 
 def _build_plan(pidx: PathIndex, params, per_octave, consensus_every,
                 active_frac, rotate, dense_upto, P: int, dims: int,
-                phase_gate) -> SweepPlan:
+                phase_gate, budget_div: int) -> SweepPlan:
     """The part both engines share.  ``phase_gate(offs, offs_p)``:
-    whether a phase's buckets with k <= KMAX go to the kernel, from the
-    whole offset set and the phase's own."""
+    whether a phase's buckets with k <= kmax go to the kernel, from the
+    whole offset set and the phase's own; the JAX engines also keep the
+    kernel to f32 and off under ``GFASORT_DENSE_KERNEL=xla``.
+    ``budget_div``: the dispatch budget's divisor (1 in 1D, 2 in nD)."""
+    if params.dtype not in _DTYPES:
+        raise ValueError(f"unknown dtype {params.dtype!r}")
+    knobs = sweep_knobs()
     S = pidx.total_steps
     max_jump = max(1, min(int(params.space), pidx.max_path_step_count - 1))
     offs = offset_set(max_jump, per_octave, dense_upto)
@@ -201,7 +224,7 @@ def _build_plan(pidx: PathIndex, params, per_octave, consensus_every,
         params.iter_with_max_learning_rate, params.eps,
     )
     spi = max(1, -(-params.min_term_updates // updates_per_sweep))
-    sweep_eta = np.repeat(etas, spi).astype(np.float32)
+    sweep_eta = np.repeat(etas, spi).astype(_DTYPES[params.dtype])
     sweep_cool = np.repeat(
         np.arange(params.iter_max + 1) > params.first_cooling_iteration, spi)
     consensus_every = fit_consensus_period(
@@ -209,15 +232,21 @@ def _build_plan(pidx: PathIndex, params, per_octave, consensus_every,
 
     zetas = zeta_table(params.space, params.space_max,
                        params.space_quantization_step, params.theta)
-    phases = tuple(_phase_plan(po, params, zetas, phase_gate(offs, po), P)
-                   for po in phase_offsets)
+    use_kernel = knobs.dense_kernel and params.dtype == "float32"
+    phases = tuple(
+        _phase_plan(po, params, zetas, use_kernel and phase_gate(offs, po),
+                    knobs.kmax, P)
+        for po in phase_offsets)
     return SweepPlan(
         proposals=P, active_frac=active_frac,
         per_octave=per_octave, offs=offs, rotate=rotate,
         consensus_every=consensus_every,
-        dense_kernel=any(ph.kernel_buckets for ph in phases), phases=phases,
+        dense_kernel=use_kernel and phase_gate(offs, offs), phases=phases,
         sweep_eta=sweep_eta, sweep_cool=sweep_cool,
-        updates_per_sweep=updates_per_sweep, dims=dims,
+        updates_per_sweep=updates_per_sweep,
+        n_exec=executed_sweeps(len(sweep_eta), consensus_every, S,
+                               knobs.dispatch_elems // budget_div),
+        dtype=params.dtype, knobs=knobs, dims=dims,
     )
 
 
@@ -233,15 +262,14 @@ def make_sweep_plan(
 ) -> SweepPlan:
     """Resolve the 1D engine's knobs exactly as ``build_sweep_runner``
     does (None = the shape-aware default of ``auto_sweep_config``)."""
-    _check_dtype(params)
     auto = auto_sweep_config(pidx.total_steps, pidx.num_nodes)
     *knobs, P = _knobs(auto, per_octave, consensus_every, active_frac,
                        rotate, dense_upto, proposals)
-    # the JAX engine's dense_kernel_enabled under the forced kernel:
-    # f32 (checked above) and at least two dense buckets in the whole
-    # offset set, decided once for every phase
+    # the JAX engine's dense_kernel_enabled under the forced kernel: at
+    # least two dense buckets in the whole offset set, decided once for
+    # every phase
     return _build_plan(pidx, params, *knobs, P, 1,
-                       lambda offs, offs_p: int((offs <= 8).sum()) >= 2)
+                       lambda offs, offs_p: int((offs <= 8).sum()) >= 2, 1)
 
 
 def make_layout_plan(
@@ -259,7 +287,6 @@ def make_layout_plan(
     the proposal clamp to ``max(1, 4 - D)`` choice words, jumps in steps
     (``params.space``), and the kernel gate decided per phase (at least
     two offsets <= 8 in the phase's own offset set)."""
-    _check_dtype(params)
     D = int(params.dimensions)
     auto = auto_sweep_config(pidx.total_steps, pidx.num_nodes, layout=True)
     *knobs, P = _knobs(auto, per_octave, consensus_every, active_frac,
@@ -267,4 +294,4 @@ def make_layout_plan(
     # the TPU kernel's input-window clamp, kept for parity
     P = min(P, 4 * max(1, 4 - D))
     return _build_plan(pidx, params, *knobs, P, D,
-                       lambda offs, offs_p: int((offs_p <= 8).sum()) >= 2)
+                       lambda offs, offs_p: int((offs_p <= 8).sum()) >= 2, 2)

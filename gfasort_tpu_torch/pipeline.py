@@ -8,9 +8,11 @@ and the exact oracle branches are the port's copies of
 * ``"exact"`` — the sequential oracle on the host (C++ if built);
 * ``"sweep"`` — the port's offset-sweep engines on ``device``: the 1D
   engine for ``Y``, the nD layout engine for ``L``;
+* ``"batched"`` — the port's batched-synchronous engines on ``device``
+  (``ops/sgd.py``), 1D for ``Y`` and nD for ``L``;
 * ``"auto"`` — the oracle up to 200,000 nodes, the sweep engines above.
 
-The batched and multi-device engines are not ported yet and raise
+The multi-device engines are not ported yet and raise
 ``NotImplementedError``.
 """
 
@@ -44,7 +46,6 @@ PIPELINE_CHARS = "YgsSuL"
 AUTO_ORACLE_MAX_NODES = 200_000
 
 _NOT_PORTED = {
-    "batched": "the batched engine (ROADMAP queue 1: ops/sgd.py)",
     "sharded": "the multi-device engines (ROADMAP queue 1: parallel/)",
     "sweep-sharded": "the multi-device engines (ROADMAP queue 1: parallel/)",
 }
@@ -62,13 +63,17 @@ def validate_pipeline(pipeline: str) -> None:
             )
 
 
-def _resolve_engine(engine: str, n_nodes: int) -> str:
+def _resolve_engine(engine: str, n_nodes: int, *, layout: bool = False) -> str:
+    """The engine that runs; ``layout``: the ``L`` step, which (as the JAX
+    ``layout_step``) sends every other engine name to the batched engine."""
     if engine == "auto":
         return "exact" if n_nodes <= AUTO_ORACLE_MAX_NODES else "sweep"
     if engine in _NOT_PORTED:
         raise NotImplementedError(f"engine {engine!r}: {_NOT_PORTED[engine]} "
                                   "is not ported to PyTorch yet")
-    if engine not in ("exact", "sweep"):
+    if engine not in ("exact", "sweep", "batched"):
+        if layout:
+            return "batched"
         raise ValueError(f"unknown engine {engine!r}")
     return engine
 
@@ -93,6 +98,10 @@ def _sgd_order(graph: BidirectedGraph, params: PathSGDParams, engine: str,
         from .ops.exact import path_sgd_sort_exact
 
         return path_sgd_sort_exact(graph, params)
+    if engine == "batched":
+        from .ops.sgd import path_sgd_sort_batched
+
+        return path_sgd_sort_batched(graph, params, device=device)
     from .ops.sweep import path_sgd_sort_sweep
 
     return path_sgd_sort_sweep(graph, params, device=device)
@@ -140,9 +149,9 @@ def layout_step(
     device="cuda",
 ) -> Tuple[Layout, float]:
     """'L' step (src/bin/gfasort.rs:265-274): nD layout + sampled stress.
-    The sweep engine runs on ``device``."""
+    The sweep and batched engines run on ``device``."""
     pidx = PathIndex.from_graph(graph)
-    eng = _resolve_engine(engine, pidx.num_nodes)
+    eng = _resolve_engine(engine, pidx.num_nodes, layout=True)
     if eng == "exact":
         layout = None
         try:
@@ -156,6 +165,11 @@ def layout_step(
             from .ops.exact import path_linear_sgd_layout_exact
 
             layout = path_linear_sgd_layout_exact(graph, params, pidx)
+    elif eng == "batched":
+        from .ops.sgd import path_linear_sgd_layout_batched
+
+        layout = path_linear_sgd_layout_batched(graph, params, pidx,
+                                                device=device)
     else:
         from .ops.sweep_nd import path_linear_sgd_layout_sweep
 

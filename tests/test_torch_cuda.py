@@ -373,3 +373,154 @@ def test_dense_probe_runs_on_the_card(cuda):
         assert res["variants"][v]["bit_identical"]
         assert res["variants"][v]["ms"] > 0
     assert res["library_max_abs_err"] <= dense_probe.LIBRARY_ATOL
+
+
+# ---- the jax.random draws, the f64 / threefry sweeps, the batched engine ---
+
+def test_jrandom_draws_on_cuda_equal_cpu(cuda):
+    """Integer and bit-manipulation ops only: bit for bit."""
+    from gfasort_tpu_torch.ops import jrandom
+
+    kd = key_data(9399220)
+    for dev_key in (kd, torch.from_numpy(kd.astype(np.int64)).to(cuda)):
+        cpu_key = (kd if isinstance(dev_key, np.ndarray)
+                   else torch.from_numpy(kd.astype(np.int64)))
+        for shape in ((1,), (70_001,), (3, 4097)):
+            pairs = [
+                (jrandom.split(dev_key, 5, cuda), jrandom.split(cpu_key, 5, "cpu")),
+                (jrandom.bits(dev_key, shape, cuda), jrandom.bits(cpu_key, shape, "cpu")),
+                (jrandom.bits(dev_key, shape, cuda, 64),
+                 jrandom.bits(cpu_key, shape, "cpu", 64)),
+                (jrandom.uniform(dev_key, shape, torch.float32, cuda),
+                 jrandom.uniform(cpu_key, shape, torch.float32, "cpu")),
+                (jrandom.uniform(dev_key, shape, torch.float64, cuda),
+                 jrandom.uniform(cpu_key, shape, torch.float64, "cpu")),
+                (jrandom.randint(dev_key, shape, 3, 2**31 - 1, cuda),
+                 jrandom.randint(cpu_key, shape, 3, 2**31 - 1, "cpu")),
+                (jrandom.bernoulli(dev_key, 0.5, shape, cuda),
+                 jrandom.bernoulli(cpu_key, 0.5, shape, "cpu")),
+            ]
+            for got, want in pairs:
+                assert got.device.type == "cuda"
+                assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("mode", ["f64", "threefry_f32"])
+def test_sweep_f64_and_threefry_on_cuda_certify_against_cpu(cuda, mode,
+                                                            monkeypatch):
+    """The f64 route (roll passes only, no kernel launch) and the
+    threefry draws at f32 (the bucket kernel): identical run to run on
+    the card; against the CPU run the order certifies (the sampler's
+    exp/log differ between the devices in the last place)."""
+    pidx = synthetic_path_index(3000, 2, 6000, seed=3)
+    dtype = "float64" if mode == "f64" else "float32"
+    if mode == "threefry_f32":
+        monkeypatch.setenv("GFASORT_SWEEP_RNG", "threefry")
+    p = replace(PathSGDParams().derive_from_graph(pidx), dtype=dtype,
+                iter_max=10)
+    kw = dict(proposals=12, per_octave=2, dense_upto=4, rotate=2,
+              consensus_every=4)
+    plan = make_sweep_plan(pidx, p, **kw)
+    assert plan.knobs.rng == ("threefry" if mode == "threefry_f32" else "hash")
+    before = bucket_apply.launches
+    x_gpu = path_linear_sgd_sweep(None, p, pidx, device=cuda, **kw)
+    launched = bucket_apply.launches - before
+    if mode == "f64":
+        assert launched == 0
+        assert not any(ph.kernel_buckets for ph in plan.phases)
+    else:
+        assert launched == plan.n_exec
+    x_gpu2 = path_linear_sgd_sweep(None, p, pidx, device=cuda, **kw)
+    np.testing.assert_array_equal(x_gpu, x_gpu2)
+    x_cpu = path_linear_sgd_sweep(None, p, pidx, device="cpu", **kw)
+    assert np.isfinite(x_gpu).all()
+    q = rank_quality(np.argsort(x_gpu, kind="stable"),
+                     np.argsort(x_cpu, kind="stable"))
+    assert q["rank_mae_frac"] <= 2e-3 and q["spearman"] >= 0.999, q
+
+
+@pytest.mark.parametrize("dtype,pow_mode", [("float64", "fpp"),
+                                            ("float32", "fpp"),
+                                            ("float32", "fast")])
+def test_batched_1d_on_cuda_equals_cpu(cuda, dtype, pow_mode):
+    """``fpp`` draws and the round's updates are IEEE adds, multiplies
+    and divides (no transcendental, no contraction in eager torch), and
+    each node's terms are summed in one fixed order: bit for bit against
+    the CPU, and run to run.  ``fast`` mode draws through exp/log, which
+    differ between the devices in the last place: the order certifies."""
+    from gfasort_tpu_torch.ops.sgd import path_linear_sgd_batched
+
+    pidx = synthetic_path_index(2000, 3, 3000, seed=5)
+    p = replace(PathSGDParams().derive_from_graph(pidx), dtype=dtype,
+                pow_mode=pow_mode, iter_max=5, batch=1024)
+    x_gpu = path_linear_sgd_batched(None, p, pidx, device=cuda)
+    np.testing.assert_array_equal(
+        x_gpu, path_linear_sgd_batched(None, p, pidx, device=cuda))
+    x_cpu = path_linear_sgd_batched(None, p, pidx, device="cpu")
+    if pow_mode == "fpp":
+        np.testing.assert_array_equal(x_gpu, x_cpu)
+    else:
+        q = rank_quality(np.argsort(x_gpu, kind="stable"),
+                         np.argsort(x_cpu, kind="stable"))
+        assert q["rank_mae_frac"] <= 2e-3 and q["spearman"] >= 0.999, q
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_batched_layout_on_cuda_equals_cpu(cuda, dims):
+    """f64 / ``fpp``: the square roots are IEEE on both devices
+    (``sqrt_rn``), so bit for bit, and run to run."""
+    from gfasort_tpu_torch.ops.exact import layout_initial_coords
+    from gfasort_tpu_torch.ops.sgd import path_linear_sgd_layout_batched
+
+    pidx = synthetic_path_index(1000, 3, 1500, seed=6)
+    lp = replace(LayoutSGDParams().derive_from_graph(pidx, dims),
+                 dtype="float64", pow_mode="fpp", iter_max=3, batch=2048)
+    init = layout_initial_coords(pidx, dims, lp.seed)
+    out = [path_linear_sgd_layout_batched(None, lp, pidx, init, device=d).coords
+           for d in (cuda, cuda, "cpu")]
+    np.testing.assert_array_equal(out[0], out[1])
+    np.testing.assert_array_equal(out[0], out[2])
+
+
+def test_checkpointed_run_on_cuda_equals_single_shot(cuda, tmp_path):
+    from gfasort_tpu_torch.checkpoint import path_linear_sgd_checkpointed
+    from gfasort_tpu_torch.ops.sgd import path_linear_sgd_batched
+
+    pidx = synthetic_path_index(1000, 3, 1500, seed=8)
+    p = replace(PathSGDParams().derive_from_graph(pidx), dtype="float64",
+                pow_mode="fpp", iter_max=4, batch=512)
+    x_one = path_linear_sgd_batched(None, p, pidx, device=cuda)
+    x_seg = path_linear_sgd_checkpointed(None, p, str(tmp_path / "c"), pidx,
+                                         segment_rounds=7, device=cuda)
+    np.testing.assert_array_equal(x_seg, x_one)
+
+
+def test_batched_graph_replay_equals_eager_loop(cuda, monkeypatch):
+    """On the card the round loop is replayed as a CUDA graph in blocks
+    of rounds; the eager loop gives the same positions and coordinates,
+    bit for bit, across chunks of several round counts and table
+    widths."""
+    from gfasort_tpu_torch.ops import sgd
+    from gfasort_tpu_torch.ops.exact import layout_initial_coords
+
+    pidx = synthetic_path_index(2000, 3, 3000, seed=5)
+    p = replace(PathSGDParams().derive_from_graph(pidx), dtype="float32",
+                pow_mode="fpp", iter_max=20, batch=256)
+    lp = replace(LayoutSGDParams().derive_from_graph(pidx, 2),
+                 dtype="float32", pow_mode="fpp", iter_max=6, batch=256)
+    init = layout_initial_coords(pidx, 2, lp.seed)
+    # chunks of 40 rounds, split at the first cooling round, in graph
+    # blocks of 16 rounds: captured, replayed, and eager remainders
+    monkeypatch.setattr(sgd, "_CHUNK_TERMS", 40 * 2 * 256)
+    monkeypatch.setattr(sgd, "_GRAPH_ROUNDS", 16)
+    graphs = (sgd.path_linear_sgd_batched(None, p, pidx, device=cuda),
+              sgd.path_linear_sgd_layout_batched(None, lp, pidx, init,
+                                                 device=cuda).coords)
+    monkeypatch.setattr(sgd, "_chunk_runner",
+                        lambda loop, state, pad: (
+                            lambda table, *rest: loop(state, table, *rest)))
+    eager = (sgd.path_linear_sgd_batched(None, p, pidx, device=cuda),
+             sgd.path_linear_sgd_layout_batched(None, lp, pidx, init,
+                                                device=cuda).coords)
+    for a, b in zip(graphs, eager):
+        np.testing.assert_array_equal(a, b)

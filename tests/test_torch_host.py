@@ -275,3 +275,83 @@ def test_bench_util_and_trace_match_jax(what):
                          if k != "seconds"}
                         for line in tracer.to_json_lines().splitlines()])
         assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("what", ["verify", "compat", "compare_layouts",
+                                  "measure_layout_quality", "sgd_diagnostics"])
+def test_late_host_copies_match_jax(what, tmp_path, capsys):
+    """The five host modules copied with only their imports changed
+    (``verify.py``, ``compat.py`` and three ``tools/``) give the same
+    output as their originals on the same input."""
+    import gfasort_tpu.compat as j_compat
+    import gfasort_tpu.verify as j_verify
+    import gfasort_tpu_torch.compat as t_compat
+    import gfasort_tpu_torch.verify as t_verify
+    from gfasort_tpu.tools import compare_layouts as j_cmp
+    from gfasort_tpu.tools import measure_layout_quality as j_mlq
+    from gfasort_tpu.tools import sgd_diagnostics as j_diag
+    from gfasort_tpu_torch.tools import compare_layouts as t_cmp
+    from gfasort_tpu_torch.tools import measure_layout_quality as t_mlq
+    from gfasort_tpu_torch.tools import sgd_diagnostics as t_diag
+
+    text = _text(nodes=300, paths=3, steps=300, seed=9)
+    gt, gj = _pair(text)
+    src = tmp_path / "g.gfa"
+    src.write_text(text)
+    if what == "verify":
+        out = []
+        for mod, g in ((t_verify, gt), (j_verify, gj)):
+            hashes = g.compute_all_path_hashes()
+            name = sorted(hashes)[0]
+            bad = dict(hashes, **{name: "0" * 64})
+            reps = [mod.comprehensive_verify(g, h) for h in (None, hashes, bad)]
+            out.append(([dataclasses.asdict(r) for r in reps],
+                        [r.ok for r in reps],
+                        mod.reconstruct_path_sequence(g, 1),
+                        mod.validate_gfa_format(text),
+                        mod.validate_gfa_format("S\t1\nL\t1\t+\n")))
+        assert out[0] == out[1]
+        assert out[0][1] == [True, True, False]
+    elif what == "compat":
+        out = []
+        for mod, g in ((t_compat, gt), (j_compat, gj)):
+            sg = mod.SimpleGraph.from_bidirected(g)
+            res = [sg.topological_sort(), mod.tarjan_scc(sg),
+                   mod.find_simple_components_legacy(sg),
+                   mod.union_find_components(sg)]
+            merged = mod.compact_simple(sg)
+            back = sg.to_bidirected()
+            out.append((res, merged, back.node_count(), len(back.edges)))
+        assert out[0] == out[1]
+    elif what == "compare_layouts":
+        rng = np.random.default_rng(2)
+        xy = rng.standard_normal((300, 4)) * 100
+        ours, odgi = tmp_path / "ours.tsv", tmp_path / "odgi.tsv"
+        ours.write_text("idx\tx\ty\n" + "".join(
+            f"{i}\t{a}\t{b}\n" for i, (a, b) in enumerate(xy[:, :2])))
+        odgi.write_text("idx\tX\tY\tcomponent\n" + "".join(
+            f"{2 * i + e}\t{xy[i, 2 * e]}\t{xy[i, 2 * e + 1]}\t0\n"
+            for i in range(300) for e in (0, 1)))
+        argv = [str(src), str(ours), str(odgi)]
+        assert t_cmp.main(argv) == 0
+        got = capsys.readouterr()
+        assert j_cmp.main(argv) == 0
+        assert got == capsys.readouterr()
+        assert "ratio (gfasort/ODGI)" in got.out
+        assert t_cmp.main([]) == j_cmp.main([]) == 1
+    elif what == "measure_layout_quality":
+        assert t_mlq.main([str(src)]) == 0
+        got = capsys.readouterr()
+        assert j_mlq.main([str(src)]) == 0
+        assert got == capsys.readouterr() and "MSE" in got.out
+        assert dataclasses.asdict(t_mlq.measure(gt)) == dataclasses.asdict(
+            j_mlq.measure(gj))
+    else:
+        logs = ([], [])
+        n = (t_diag.diagnose(gt, log=lambda *a: logs[0].append(a)),
+             j_diag.diagnose(gj, log=lambda *a: logs[1].append(a)))
+        assert n[0] == n[1] and logs[0] == logs[1] and logs[0]
+        assert t_diag.main([str(src)]) == 0
+        got = capsys.readouterr()
+        assert j_diag.main([str(src)]) == 0
+        assert got == capsys.readouterr()

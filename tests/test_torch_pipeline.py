@@ -6,6 +6,7 @@ import pathlib
 import subprocess
 import sys
 import textwrap
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ torch = pytest.importorskip("torch")
 from gfasort_tpu.io import gfa as jax_gfa  # noqa: E402
 from gfasort_tpu.pipeline import run_pipeline as jax_run_pipeline  # noqa: E402
 from gfasort_tpu_torch import cli  # noqa: E402
+from gfasort_tpu_torch.index import PathIndex  # noqa: E402
 from gfasort_tpu_torch.io import gfa  # noqa: E402
 from gfasort_tpu_torch.pipeline import run_pipeline  # noqa: E402
 from gfasort_tpu_torch.tools.make_synthetic_gfa import synthetic_gfa_lines  # noqa: E402
@@ -49,15 +51,22 @@ def test_auto_engine_small_graph_matches_jax_pipeline():
 
 @pytest.mark.parametrize("engine", ["batched", "sharded", "sweep-sharded"])
 def test_unported_engines_raise(engine):
+    """The multi-device engines raise; the batched engine, ported since,
+    runs and keeps every path."""
     g, _ = _graph(nodes=200, steps=200)
+    if engine == "batched":
+        hashes = g.compute_all_path_hashes()
+        run_pipeline(g, "Y", iter_max=2, engine=engine, device="cpu")
+        assert g.compute_all_path_hashes() == hashes
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_pipeline(g, "Y", iter_max=2, engine=engine, device="cpu")
 
 
 def test_layout_exact_works_and_device_layout_raises():
-    """Both engines of ``L`` run: the oracle, and the device (nD sweep)
-    engine here on the CPU; neither changes the graph.  Only the
-    unported engines raise."""
+    """The engines of ``L`` run: the oracle, and the device engines (nD
+    sweep, and batched since it was ported) here on the CPU; none
+    changes the graph.  Only the unported engines raise."""
     g, _ = _graph(nodes=300, steps=300)
     hashes = g.compute_all_path_hashes()
     res = run_pipeline(g, "L", layout_iter=2, engine="exact", device="cpu")
@@ -71,8 +80,28 @@ def test_layout_exact_works_and_device_layout_raises():
         assert np.isfinite(res.layout_stress) and res.layout_stress > 0
         assert g.compute_all_path_hashes() == hashes
     assert [e.name for e in res.tracer.events] == ["3D layout"]
+    res = run_pipeline(g, "L", layout_iter=2, engine="batched", device="cpu")
+    assert res.layout.num_nodes == g.node_count()
+    assert np.isfinite(res.layout.coords).all() and res.layout_stress > 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_pipeline(g, "L", layout_iter=2, engine="batched", device="cpu")
+        run_pipeline(g, "L", layout_iter=2, engine="sharded", device="cpu")
+
+
+def test_layout_step_sends_other_engine_names_to_batched():
+    """As the JAX ``layout_step``: an engine name other than exact,
+    sweep, auto and the multi-device ones runs the batched engine in
+    ``L``; ``Y`` refuses it."""
+    from gfasort_tpu_torch.params import LayoutSGDParams
+    from gfasort_tpu_torch.pipeline import layout_step
+
+    g, _ = _graph(nodes=200, steps=200)
+    lp = replace(LayoutSGDParams().derive_from_graph(
+        PathIndex.from_graph(g), 2), iter_max=2)
+    a, _ = layout_step(g, lp, engine="batched", device="cpu")
+    b, _ = layout_step(g, lp, engine="hogwild", device="cpu")
+    np.testing.assert_array_equal(a.coords, b.coords)
+    with pytest.raises(ValueError, match="unknown engine"):
+        run_pipeline(g, "Y", iter_max=2, engine="hogwild", device="cpu")
 
 
 def test_cli_sweep_on_cpu_writes_sorted_gfa(tmp_path):
@@ -98,8 +127,9 @@ def test_sweep_on_cuda_without_cuda_raises(tmp_path):
 
 
 def test_port_never_imports_jax():
-    """Every module of the port and the smoke script, then the 1D sweep,
-    ``sYgsL`` and the native oracle on the CPU: neither ``jax`` nor any
+    """Every module of the port and the smoke script, then the 1D sweep
+    (f32 and f64), ``sYgsL``, the batched engines, the checkpointed
+    runner and the native oracle on the CPU: neither ``jax`` nor any
     module of the JAX package ``gfasort_tpu`` is ever imported."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -125,6 +155,16 @@ def test_port_never_imports_jax():
         g = gfa.parse_gfa_numeric("\\n".join(synthetic_gfa_lines(500, 2, 500)))
         pipeline.run_pipeline(g, "sYgsL", iter_max=3, layout_iter=2,
                               engine="sweep", device="cpu")
+        # the f64 sweep, the batched engines and the checkpointed runner
+        sweep.path_linear_sgd_sweep(None, replace(p, dtype="float64"), pidx,
+                                    device="cpu")
+        pipeline.run_pipeline(g, "YL", iter_max=2, layout_iter=2,
+                              engine="batched", device="cpu")
+        import os, tempfile
+        from gfasort_tpu_torch.checkpoint import path_linear_sgd_checkpointed
+        with tempfile.TemporaryDirectory() as d:
+            path_linear_sgd_checkpointed(None, p, os.path.join(d, "c"), pidx,
+                                         segment_rounds=2, device="cpu")
         bad = sorted(k for k in sys.modules if k == "jax"
                      or k.startswith("jax.") or k == "gfasort_tpu"
                      or k.startswith("gfasort_tpu."))

@@ -151,6 +151,71 @@ def test_sweep_contract_edges():
     lone = BidirectedGraph()
     lone.add_node(1, b"A")
     assert port_sweep.path_linear_sgd_sweep(lone, p, device="cpu") is None
-    with pytest.raises(NotImplementedError):
-        port_sweep.path_linear_sgd_sweep(g, replace(p, dtype="float64"),
-                                         device="cpu")
+    # the float64 engine runs too (threefry draws, roll passes only)
+    x64 = port_sweep.path_linear_sgd_sweep(g, replace(p, dtype="float64"),
+                                           pidx, device="cpu")
+    assert x64.shape == x.shape and np.isfinite(x64).all()
+    np.testing.assert_allclose(x64[2:], pidx.initial_positions()[2:])
+
+
+# ---- the threefry draws at f32 and the f64 route -------------------------
+
+# GFASORT_SWEEP_RNG=threefry at f32 (kernel and roll buckets), and f64
+# under the default knob: the f64 engine always draws threefry, serves
+# every bucket by roll passes and sums the consensus in f64
+MODES = {"threefry_f32": ("float32", "threefry"), "f64": ("float64", "hash")}
+MODE_KW = dict(proposals=2, per_octave=2, dense_upto=4, rotate=2,
+               consensus_every=4)
+
+
+@pytest.fixture(scope="module", params=sorted(MODES))
+def mode_runs(request):
+    mp = pytest.MonkeyPatch()
+    mp.setenv("GFASORT_DENSE_KERNEL", "pallas")
+    mp.setenv("GFASORT_CONSENSUS", "gather")
+    dtype, rng = MODES[request.param]
+    mp.setenv("GFASORT_SWEEP_RNG", rng)
+    try:
+        pidx = synthetic_path_index(3000, 2, 6000, seed=3)
+        # 3 sweeps: one consensus period
+        p = replace(_params(pidx, 2), dtype=dtype)
+        npd = np.dtype(dtype).type
+        key = key_words_from_jax(np.asarray(
+            jax.random.key_data(jax.random.key(p.seed))))
+
+        def port():
+            run, arrays, _, info = port_sweep.build_sweep_runner(
+                pidx, p, **MODE_KW, device="cpu")
+            pos, rank, cnt, xs0, xn0 = sweep_state_from_numpy(
+                pidx, None, "cpu", npd)
+            for a, b in zip((pos, rank, cnt), arrays):
+                assert torch.equal(a, b)
+            return run(xs0, xn0, key, pos, rank, cnt).numpy(), info
+
+        with jax.disable_jit():
+            unjitted = _run_jax(pidx, p, MODE_KW)
+        yield {"name": request.param, "dtype": dtype, "pidx": pidx,
+               "unjitted": unjitted, "port": (port(), port())}
+    finally:
+        mp.undo()
+
+
+def test_mode_runner_info_equals_jax(mode_runs):
+    (_, info_j), ((_, info_t), _) = mode_runs["unjitted"], mode_runs["port"]
+    assert info_t == info_j
+    assert info_t["n_sweeps"] <= info_t["consensus_every"]
+    if mode_runs["dtype"] == "float64":
+        assert not info_t["dense_kernel"] and info_t["xla_buckets_per_phase"] > 0
+    else:
+        assert info_t["dense_kernel"]
+
+
+def test_mode_one_consensus_period_equals_unjitted_jax(mode_runs):
+    (x_u, _), ((x_t, _), _) = mode_runs["unjitted"], mode_runs["port"]
+    assert x_t.dtype == np.dtype(mode_runs["dtype"]) and np.isfinite(x_t).all()
+    np.testing.assert_array_equal(x_t, x_u)
+
+
+def test_mode_port_runs_are_bit_identical(mode_runs):
+    (x_a, _), (x_b, _) = mode_runs["port"]
+    np.testing.assert_array_equal(x_a, x_b)

@@ -278,9 +278,11 @@ def test_layout_sweep_contract_edges():
     np.testing.assert_allclose(lay.coords[3], init[3].astype(np.float32))
     assert port_nd.path_linear_sgd_layout_sweep(
         BidirectedGraph(), lp, device="cpu").num_nodes == 0
-    with pytest.raises(NotImplementedError):
-        port_nd.path_linear_sgd_layout_sweep(
-            g, replace(lp, dtype="float64"), pidx, device="cpu")
+    # the float64 engine runs too (threefry draws, roll passes only)
+    lay64 = port_nd.path_linear_sgd_layout_sweep(
+        g, replace(lp, dtype="float64"), pidx, device="cpu")
+    assert lay64.num_nodes == 4 and np.isfinite(lay64.coords).all()
+    np.testing.assert_array_equal(lay64.coords[3], init[3])
 
 
 def test_sqrt_rn_is_correctly_rounded():
@@ -314,3 +316,108 @@ def test_rsqrt_spec_is_within_one_ulp_of_exact_as_xla_rsqrt():
     assert ulps(port, exact).max() <= 1
     assert ulps(xla, exact).max() <= 1
     assert 0 < ulps(port, xla).max() <= 2
+
+
+def test_sqrt_rn_is_correctly_rounded_f64():
+    """``sqrt_rn`` at f64 equals numpy's f64 sqrt, the IEEE root (the
+    f64 route's plain square root)."""
+    rng = np.random.default_rng(4)
+    x = np.concatenate([np.abs(rng.standard_normal(200_000)) * 1e5,
+                        rng.random(200_000) * 1e-200, rng.random(1000) * 1e300,
+                        [0.0, 1e-18, 1.0, 2.0]])
+    np.testing.assert_array_equal(sqrt_rn(torch.from_numpy(x)).numpy(),
+                                  np.sqrt(x))
+
+
+def test_rsqrt_spec_f64_is_within_one_ulp_of_exact_as_xla_rsqrt():
+    """At f64 as at f32: the port's ``1 / sqrt`` and XLA:CPU's f64
+    ``rsqrt`` each lie within 1 ulp of the exactly rounded value
+    (computed in the 80-bit long double), so they differ by up to 2
+    ulp."""
+    rng = np.random.default_rng(1)
+    x = np.concatenate([np.abs(rng.standard_normal(20_000)),
+                        rng.random(20_000) * 1e12, rng.random(20_000) * 1e-18,
+                        [1e-18, 1.0, 4.0]])
+    port = (1.0 / sqrt_rn(torch.from_numpy(x))).numpy()
+    xla = np.asarray(jax.lax.rsqrt(jnp.asarray(x)))
+    exact = (1.0 / np.sqrt(x.astype(np.longdouble))).astype(np.float64)
+
+    def ulps(a, b):
+        return np.abs(a.view(np.int64) - b.view(np.int64))
+
+    assert np.finfo(np.longdouble).nmant > 52
+    assert ulps(port, exact).max() <= 1
+    assert ulps(xla, exact).max() <= 1
+    assert 0 < ulps(port, xla).max() <= 2
+
+
+# ---- the threefry draws at f32 and the f64 route -------------------------
+
+# GFASORT_SWEEP_RNG=threefry at f32 (D = 3, kernel and roll buckets), and
+# f64 under the default knob (D = 2): the f64 engine always draws
+# threefry and serves every bucket by roll passes
+MODES = {"threefry_f32_d3": ("float32", "threefry", 3),
+         "f64_d2": ("float64", "hash", 2)}
+MODE_KW = dict(proposals=2, per_octave=2, dense_upto=4, rotate=2,
+               consensus_every=4, active_frac=1.0)
+
+
+@pytest.fixture(scope="module", params=sorted(MODES))
+def mode_runs(request):
+    mp = pytest.MonkeyPatch()
+    mp.setenv("GFASORT_DENSE_KERNEL", "pallas")
+    mp.setenv("GFASORT_CONSENSUS", "gather")
+    dtype, rng, D = MODES[request.param]
+    mp.setenv("GFASORT_SWEEP_RNG", rng)
+    try:
+        pidx = synthetic_path_index(3000, 2, 6000, seed=5)
+        # 3 sweeps: one consensus period
+        lp = replace(_lparams(pidx, D, 2, min_term_updates=pidx.total_steps),
+                     dtype=dtype)
+        init = layout_initial_coords(pidx, D, lp.seed)
+        key = key_words_from_jax(np.asarray(
+            jax.random.key_data(jax.random.key(lp.seed))))
+
+        def port():
+            run, arrays, make_state, info = port_nd.build_sweep_nd_runner(
+                pidx, lp, **MODE_KW, device="cpu")
+            cs0, csn0 = make_state(init)
+            return run(cs0, csn0, key, *arrays).numpy(), info
+
+        out = {"name": request.param, "dtype": dtype, "D": D, "pidx": pidx,
+               "port": (port(), port())}
+        with jax.disable_jit():
+            out["unjitted_rsqrt"] = _run_jax(pidx, lp, MODE_KW, init)[:2]
+            with mp.context() as m:
+                m.setattr(jax.lax, "rsqrt", lambda x: 1.0 / jnp.sqrt(x))
+                out["unjitted"] = _run_jax(pidx, lp, MODE_KW, init)[0]
+        yield out
+    finally:
+        mp.undo()
+
+
+def test_mode_layout_runner_info_equals_jax(mode_runs):
+    (_, info_j), ((_, info_t), _) = mode_runs["unjitted_rsqrt"], mode_runs["port"]
+    assert info_t == info_j
+    assert info_t["n_sweeps"] <= info_t["consensus_every"]
+
+
+def test_mode_one_consensus_period_equals_unjitted_jax(mode_runs):
+    """Bit for bit with the JAX ``rsqrt`` read as ``1 / sqrt``; with
+    XLA:CPU's own ``rsqrt`` (up to 2 ulp from the port's, in f32 and in
+    f64) within rtol 1e-4 / atol 0.2 at f32, as the f32 configs against
+    the jitted runner, and rtol 1e-9 / atol 1e-6 at f64."""
+    x_u = mode_runs["unjitted"]
+    (x_r, _), ((x_t, _), _) = mode_runs["unjitted_rsqrt"], mode_runs["port"]
+    assert x_t.shape == (2 * mode_runs["D"], mode_runs["pidx"].num_nodes)
+    assert x_t.dtype == np.dtype(mode_runs["dtype"]) and np.isfinite(x_t).all()
+    np.testing.assert_array_equal(x_t, x_u)
+    if mode_runs["dtype"] == "float64":
+        np.testing.assert_allclose(x_t, x_r, rtol=1e-9, atol=1e-6)
+    else:
+        np.testing.assert_allclose(x_t, x_r, rtol=1e-4, atol=0.2)
+
+
+def test_mode_port_layout_runs_are_bit_identical(mode_runs):
+    (x_a, _), (x_b, _) = mode_runs["port"]
+    np.testing.assert_array_equal(x_a, x_b)
