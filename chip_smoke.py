@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases (they run in the order 1-8, 13's CLI run, 9, 11-14, 10); any
-failed check raises and the script exits non-zero:
+Phases (they run in the order 1-8, 13's CLI run, 9, 11-12, 15-18, 13-14,
+10); any failed check raises and the script exits non-zero:
 
 1. build      — compile the hand-written CUDA kernels from ``csrc/``, one
                 ``nvcc`` per source, all at once (timed).
@@ -15,8 +15,9 @@ failed check raises and the script exits non-zero:
 3. kernel_nd  — the nD bucket-apply kernel against its plain version at
                 S = 4M with the bench-shape layout plans' phase-0 and
                 phase-1 kernel bucket lists: D = 2 with P = 8 (2 words),
-                D = 3 with P = 4 (1 word) and D = 2 with P = 1: wacc and
-                acc bit-identical; both timed.
+                D = 3 with P = 4 (1 word), D = 3 with P = 8 (2 words, the
+                sharded layout's unclamped case) and D = 2 with P = 1:
+                wacc and acc bit-identical; both timed.
 4. sweep_apply — the fused sweep apply (all buckets of an offset set in
                 one pass, rank/cnt guards, the combine) on the bench
                 index at S = 4M with its real rank and cnt, over the full
@@ -56,8 +57,10 @@ failed check raises and the script exits non-zero:
 11. sweep_f64 — the 1D sweep at float64 (threefry draws, every bucket a
                 roll pass: the plan's kernel buckets must be 0 and the
                 bucket kernel must not launch), timed on the bench index
-                at full width, and its order certified on the 100k-node
-                workload against the same oracle as ``quality``.
+                at full width and SWEEP_MODE_ITER = 30 iterations (cut
+                from the bench's 100 to keep the script's time), and its
+                order certified on the 100k-node workload against the
+                same oracle as ``quality``.
 12. sweep_threefry — the same at float32 with ``GFASORT_SWEEP_RNG=
                 threefry``: the bucket kernel launches once per executed
                 sweep on the bench index; the certificate as above.
@@ -73,6 +76,31 @@ failed check raises and the script exits non-zero:
                 workload, stopped after two segments and resumed, equal
                 to the single-shot run; a checkpoint of another seed is
                 refused.
+15. sharded_sweep — the sharded 1D sweep (``parallel/sweep_shard.py``):
+                ``-p Y --engine sweep-sharded`` on the bench GFA through
+                ``cli.main`` (a one-shard mesh of the card), a direct
+                call on 4 shards of the card (L = 1M), each with its
+                seconds, pair-updates/s, ce, executed sweeps and bucket
+                kernel launches (one per shard and sweep); the
+                single-card engine and a one-shard sharded call on the
+                bench index timed in turns; the order on
+                the 100k-node workload at 1 and 4 shards certified as in
+                ``quality``.
+16. sharded_layout — ``-p L --dimensions 2 --engine sweep-sharded`` on
+                the bench GFA (nD kernel launches one per executed
+                sweep), and the sharded layout on 4 shards of the card
+                against the C++ oracle on the 20k-node workload with the
+                bench's nD knobs, 2D and 3D (P = 8, unclamped): stress
+                ratio <= 1.5.
+17. sharded_batched — ``-p Y --engine sharded`` on the bench GFA through
+                ``cli.main`` (seconds, rounds/s), and the sharded batched
+                engine's certificate (f32, ``pow_mode="fpp"``) at 1 and 4
+                shards.
+18. distributed — a one-rank NCCL process group started by
+                ``init_distributed`` from the ``GFASORT_*`` variables on a
+                free local port; the sharded sweep on the 100k-node
+                workload through it equals the run with no group bit for
+                bit.
 
 Then the ``nvidia-smi`` card line, one JSON line describing every kernel,
 and ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -83,6 +111,7 @@ package ``gfasort_tpu`` is imported.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -112,6 +141,9 @@ SHIFT_SIZES = (1 << 22, 1 << 26)
 # the bench's nD knobs (ce 48, rotate 12, frac 1.0, dense_upto 4, P 8)
 ND_CERT_KW = dict(consensus_every=48, rotate=12, active_frac=1.0,
                   dense_upto=4, proposals=8)
+# iterations of the f64 and threefry sweeps on the bench index (cut from
+# the bench's 100 to keep the script's time)
+SWEEP_MODE_ITER = 30
 # the batched engine's CLI run on the bench GFA (the CLI default) and
 # the checkpoint phase's segment
 BATCHED_CLI_ITER = 100
@@ -221,7 +253,7 @@ def phase_kernel_nd(plans, S, pos_np, card_line):
     rng = np.random.default_rng(1)
     pos = torch.from_numpy(pos_np).to(dev)
     results = {}
-    for D, P in ((2, 8), (3, 4), (2, 1)):
+    for D, P in ((2, 8), (3, 4), (3, 8), (2, 1)):
         plan = plans[D]
         my_c = torch.from_numpy(bench_layout_coords(rng, pos_np, D)).to(dev)
         eta = float(plan.sweep_eta[0])
@@ -360,41 +392,78 @@ def phase_shift_probe(card_line):
     return results
 
 
-def phase_main(gfa_in, tmp, card_line):
+@functools.lru_cache(maxsize=None)
+def gfa_truth(gfa_in):
+    """(path hashes, (nodes, edges)) of the GFA at ``gfa_in``."""
+    from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
+
+    g = load_gfa_numeric_fast(gfa_in)
+    return g.compute_all_path_hashes(), (g.node_count(), len(g.edges))
+
+
+def cli_step(gfa_in, tmp, name, argv):
+    """``cli.main`` on ``gfa_in`` with every kernel counter from 0; the
+    path hashes and the node and edge counts must be kept.  Returns (the
+    call's seconds, its trace events, the launches, the CLI's log)."""
     from gfasort_tpu_torch import cli
+    from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
+
+    hashes0, counts0 = gfa_truth(gfa_in)
+    out = os.path.join(tmp, name + ".gfa")
+    trace = os.path.join(tmp, name + ".jsonl")
+    log = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(log):
+        rc = cli.main(["-i", gfa_in, "-o", out, *argv, "--trace-out", trace,
+                       "-v", "1"])
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc}:\n{log.getvalue()}")
+    with open(trace) as fh:
+        events = [json.loads(line) for line in fh if line.strip()]
+    g1 = load_gfa_numeric_fast(out)
+    if g1.compute_all_path_hashes() != hashes0:
+        raise AssertionError(f"{name}: path hashes changed")
+    if (g1.node_count(), len(g1.edges)) != counts0:
+        raise AssertionError(f"{name}: node or edge count changed")
+    return secs, events, launches, log.getvalue()
+
+
+def step_seconds(events, name: str) -> float:
+    return next(e["seconds"] for e in events if e["event"] == name)
+
+
+def layout_stress(log: str) -> float:
+    """The sampled stress the CLI printed; positive and finite."""
+    m = re.search(r"layout stress: ([0-9.eE+-]+|nan|inf)", log)
+    if m is None:
+        raise AssertionError("the CLI printed no layout stress")
+    stress = float(m.group(1))
+    if not np.isfinite(stress) or stress <= 0:
+        raise AssertionError(f"layout stress {stress}")
+    return stress
+
+
+def phase_main(gfa_in, tmp, card_line):
     from gfasort_tpu_torch.index import PathIndex
     from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
     from gfasort_tpu_torch.ops.sweep import path_linear_sgd_sweep
     from gfasort_tpu_torch.ops.sweep_plan import make_sweep_plan
     from gfasort_tpu_torch.params import YgsParams
 
-    gfa_out = os.path.join(tmp, "sorted.gfa")
-    trace = os.path.join(tmp, "steps.jsonl")
     g0 = load_gfa_numeric_fast(gfa_in)
-    hashes0 = g0.compute_all_path_hashes()
     nodes0, edges0 = g0.node_count(), len(g0.edges)
     pidx = PathIndex.from_graph(g0)
     params = replace(YgsParams.from_graph(g0).path_sgd, iter_max=100)
     plan = make_sweep_plan(pidx, params)
 
-    reset_launches()
-    t0 = time.perf_counter()
-    rc = cli.main(["-i", gfa_in, "-o", gfa_out, "-p", "sYgs",
-                   "--trace-out", trace, "-v", "0"])
-    t_cli = time.perf_counter() - t0
-    launches = read_launches()
-    if rc != 0:
-        raise AssertionError(f"cli.main returned {rc}")
+    t_cli, events, launches, _ = cli_step(gfa_in, tmp, "sorted",
+                                          ["-p", "sYgs"])
     if launches["bucket_apply"] <= 0:
         raise AssertionError("the main path launched no bucket-apply kernel")
-    with open(trace) as fh:
-        events = [json.loads(line) for line in fh if line.strip()]
-    y_s = next(e["seconds"] for e in events if e["event"] == "SGD")
-    g1 = load_gfa_numeric_fast(gfa_out)
-    if g1.compute_all_path_hashes() != hashes0:
-        raise AssertionError("path hashes changed")
-    if (g1.node_count(), len(g1.edges)) != (nodes0, edges0):
-        raise AssertionError("node or edge count changed")
+    y_s = step_seconds(events, "SGD")
 
     # positions of the same engine on the same graph, read back
     torch.cuda.synchronize()
@@ -418,44 +487,26 @@ def phase_main(gfa_in, tmp, card_line):
 
 def phase_layout(gfa_in, tmp, card_line):
     """``-p L --dimensions 2`` through the CLI on the bench GFA."""
-    from gfasort_tpu_torch import cli
     from gfasort_tpu_torch.index import PathIndex
     from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
     from gfasort_tpu_torch.ops.sweep_plan import make_layout_plan
     from gfasort_tpu_torch.params import LayoutSGDParams
 
-    gfa_out = os.path.join(tmp, "layout.gfa")
     tsv = os.path.join(tmp, "layout.tsv")
-    trace = os.path.join(tmp, "layout_steps.jsonl")
-    g0 = load_gfa_numeric_fast(gfa_in)
-    hashes0 = g0.compute_all_path_hashes()
-    nodes0, edges0 = g0.node_count(), len(g0.edges)
-    pidx = PathIndex.from_graph(g0)
+    pidx = PathIndex.from_graph(load_gfa_numeric_fast(gfa_in))
+    nodes0 = pidx.num_nodes
     lp = replace(LayoutSGDParams().derive_from_graph(pidx, 2), iter_max=30)
     plan = make_layout_plan(pidx, lp)
-    del g0, pidx
+    del pidx
 
-    log = io.StringIO()
-    reset_launches()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stderr(log):
-        rc = cli.main(["-i", gfa_in, "-o", gfa_out, "-p", "L",
-                       "--dimensions", "2", "--layout-out", tsv,
-                       "--trace-out", trace, "-v", "1"])
-    t_cli = time.perf_counter() - t0
-    launches = read_launches()
-    if rc != 0:
-        raise AssertionError(f"cli.main returned {rc}:\n{log.getvalue()}")
+    t_cli, events, launches, log = cli_step(
+        gfa_in, tmp, "layout",
+        ["-p", "L", "--dimensions", "2", "--layout-out", tsv])
     if launches["dense_apply_nd"] != plan.n_exec:
         raise AssertionError(f"{launches['dense_apply_nd']} nD kernel launches, "
                              f"expected one per executed sweep ({plan.n_exec})")
-    m = re.search(r"layout stress: ([0-9.eE+-]+|nan|inf)", log.getvalue())
-    if m is None:
-        raise AssertionError("the CLI printed no layout stress")
-    stress = float(m.group(1))
-    with open(trace) as fh:
-        events = [json.loads(line) for line in fh if line.strip()]
-    l_s = next(e["seconds"] for e in events if e["event"] == "2D layout")
+    stress = layout_stress(log)
+    l_s = step_seconds(events, "2D layout")
     with open(tsv) as fh:
         vals = np.array(fh.read().split()[5:], dtype=np.float64).reshape(-1, 5)
     if vals.shape[0] != nodes0 or not np.array_equal(vals[:, 0],
@@ -464,13 +515,6 @@ def phase_layout(gfa_in, tmp, card_line):
                              f"expected {nodes0}")
     if not np.isfinite(vals[:, 1:]).all():
         raise AssertionError("the TSV holds non-finite coordinates")
-    g1 = load_gfa_numeric_fast(gfa_out)
-    if g1.compute_all_path_hashes() != hashes0:
-        raise AssertionError("path hashes changed")
-    if (g1.node_count(), len(g1.edges)) != (nodes0, edges0):
-        raise AssertionError("node or edge count changed")
-    if not np.isfinite(stress) or stress <= 0:
-        raise AssertionError(f"layout stress {stress}")
     updates = plan.n_sweeps * plan.updates_per_sweep
     say("layout", card_line, dims=2, nodes=nodes0, cli_s=t_cli,
         layout_step_s=l_s, stress=stress, n_sweeps=plan.n_sweeps,
@@ -680,7 +724,8 @@ def phase_sweep_mode(phase, bench, cert, card_line, dtype, rng):
     old = os.environ.get("GFASORT_SWEEP_RNG")
     os.environ["GFASORT_SWEEP_RNG"] = rng
     try:
-        p = replace(PathSGDParams().derive_from_graph(bench), dtype=dtype)
+        p = replace(PathSGDParams().derive_from_graph(bench), dtype=dtype,
+                    iter_max=SWEEP_MODE_ITER)
         plan = make_sweep_plan(bench, p)
         kernel_buckets = sum(len(ph.kernel_buckets) for ph in plan.phases)
         roll_buckets = sum(len(ph.roll_buckets) for ph in plan.phases)
@@ -700,7 +745,7 @@ def phase_sweep_mode(phase, bench, cert, card_line, dtype, rng):
                                  f"kernel launches, expected {want}")
         updates = plan.n_sweeps * plan.updates_per_sweep
         say(phase, card_line, part="bench", dtype=dtype, rng=plan.knobs.rng,
-            nodes=bench.num_nodes, steps=bench.total_steps, engine_s=secs,
+            iter_max=SWEEP_MODE_ITER, nodes=bench.num_nodes, steps=bench.total_steps, engine_s=secs,
             n_sweeps=plan.n_sweeps, exec_sweeps=plan.n_exec,
             proposals=plan.proposals, kernel_buckets=kernel_buckets,
             roll_buckets=roll_buckets, updates=updates,
@@ -722,18 +767,14 @@ def phase_batched_cli(gfa_in, tmp, card_line):
     """``-p Y --engine batched`` on the bench GFA through the CLI at its
     default schedule; every kernel counter read from 0 around it (the
     batched path runs no hand-written kernel)."""
-    from gfasort_tpu_torch import cli
     from gfasort_tpu_torch.index import PathIndex
     from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
     from gfasort_tpu_torch.ops.sgd import (build_schedule, effective_batch,
                                            path_linear_sgd_batched)
     from gfasort_tpu_torch.params import YgsParams
 
-    gfa_out = os.path.join(tmp, "batched.gfa")
-    trace = os.path.join(tmp, "batched_steps.jsonl")
     g0 = load_gfa_numeric_fast(gfa_in)
-    hashes0 = g0.compute_all_path_hashes()
-    nodes0, edges0 = g0.node_count(), len(g0.edges)
+    nodes0 = g0.node_count()
     pidx = PathIndex.from_graph(g0)
     params = replace(YgsParams.from_graph(g0).path_sgd,
                      iter_max=BATCHED_CLI_ITER)
@@ -741,24 +782,10 @@ def phase_batched_cli(gfa_in, tmp, card_line):
     n_rounds = build_schedule(params, B)[3]
     del g0
 
-    reset_launches()
-    t0 = time.perf_counter()
-    rc = cli.main(["-i", gfa_in, "-o", gfa_out, "-p", "Y", "--engine",
-                   "batched", "--iter-max", str(BATCHED_CLI_ITER),
-                   "--trace-out", trace, "-v", "0"])
-    t_cli = time.perf_counter() - t0
-    launches = read_launches()
-    if rc != 0:
-        raise AssertionError(f"cli.main returned {rc}")
-    with open(trace) as fh:
-        events = [json.loads(line) for line in fh if line.strip()]
-    y_s = next(e["seconds"] for e in events if e["event"] == "SGD")
-    g1 = load_gfa_numeric_fast(gfa_out)
-    if g1.compute_all_path_hashes() != hashes0:
-        raise AssertionError("path hashes changed")
-    if (g1.node_count(), len(g1.edges)) != (nodes0, edges0):
-        raise AssertionError("node or edge count changed")
-    del g1
+    t_cli, events, launches, _ = cli_step(
+        gfa_in, tmp, "batched",
+        ["-p", "Y", "--engine", "batched", "--iter-max", str(BATCHED_CLI_ITER)])
+    y_s = step_seconds(events, "SGD")
 
     # the same engine on the same index, called directly
     torch.cuda.synchronize()
@@ -885,6 +912,237 @@ def phase_quality_nd(card_line):
             raise AssertionError(f"layout certificate failed: {q}")
 
 
+# shards of the one card in the direct runs of the sharded phases
+SHARDS = 4
+
+
+def shard_len(pidx, n_shards: int) -> int:
+    """The sharded engines' shard length L: the largest shard of the
+    path partition."""
+    from gfasort_tpu_torch.parallel.mesh import partition_paths
+
+    return max(max(int(pidx.path_count[p].sum()) if len(p) else 0
+                   for p in partition_paths(pidx.path_count.tolist(),
+                                            n_shards)), 1)
+
+
+def phase_sharded_sweep(gfa_in, tmp, bench, cert, card_line):
+    """The sharded 1D sweep: the CLI on a one-shard card mesh, a direct
+    call on ``SHARDS`` shards of the card, and the certificate at 1 and
+    ``SHARDS`` shards.  Returns the one-shard certificate positions."""
+    from gfasort_tpu_torch.index import PathIndex
+    from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
+    from gfasort_tpu_torch.ops.sweep_plan import make_sharded_sweep_plan
+    from gfasort_tpu_torch.parallel import (default_mesh,
+                                            path_linear_sgd_sweep_sharded)
+    from gfasort_tpu_torch.params import PathSGDParams, YgsParams
+
+    g0 = load_gfa_numeric_fast(gfa_in)
+    pidx = PathIndex.from_graph(g0)
+    params = replace(YgsParams.from_graph(g0).path_sgd, iter_max=100)
+    del g0
+    n_cards = default_mesh(device="cuda").size
+    plan = make_sharded_sweep_plan(pidx, params, shard_len(pidx, n_cards))
+    secs, events, launches, _ = cli_step(
+        gfa_in, tmp, "sharded_sweep", ["-p", "Y", "--engine", "sweep-sharded"])
+    y_s = step_seconds(events, "SGD")
+    if launches["bucket_apply"] != plan.n_exec * n_cards:
+        raise AssertionError(f"{launches['bucket_apply']} bucket kernel "
+                             f"launches, expected {plan.n_exec * n_cards}")
+    updates = plan.n_sweeps * plan.updates_per_sweep
+    say("sharded_sweep", card_line, part="cli", shards=n_cards,
+        steps=pidx.total_steps, shard_len=shard_len(pidx, n_cards),
+        cli_s=secs, y_step_s=y_s, consensus_every=plan.consensus_every,
+        n_sweeps=plan.n_sweeps, exec_sweeps=plan.n_exec,
+        proposals=plan.proposals, updates=updates,
+        pair_updates_per_s_y=updates / y_s, kernel_launches=launches,
+        path_hashes_preserved=True)
+    del pidx
+
+    p = PathSGDParams().derive_from_graph(bench)
+    L = shard_len(bench, SHARDS)
+    plan = make_sharded_sweep_plan(bench, p, L)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = path_linear_sgd_sweep_sharded(None, p, default_mesh(SHARDS, "cuda"),
+                                      bench)
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    if x.shape != (bench.num_nodes,) or not np.isfinite(x).all():
+        raise AssertionError("sharded sweep positions are not finite [N]")
+    if launches["bucket_apply"] != plan.n_exec * SHARDS:
+        raise AssertionError(f"{launches['bucket_apply']} bucket kernel "
+                             f"launches, expected {plan.n_exec * SHARDS}")
+    updates = plan.n_sweeps * plan.updates_per_sweep
+    say("sharded_sweep", card_line, part="direct", shards=SHARDS,
+        steps=bench.total_steps, shard_len=L, engine_s=secs,
+        consensus_every=plan.consensus_every, n_sweeps=plan.n_sweeps,
+        exec_sweeps=plan.n_exec, proposals=plan.proposals, updates=updates,
+        pair_updates_per_s_engine=updates / secs, kernel_launches=launches)
+
+    # the single-card engine and the one-shard sharded engine on the bench
+    # index, in turns (single, sharded, sharded, single)
+    from gfasort_tpu_torch.ops.sweep import path_linear_sgd_sweep
+
+    runs = {"single": [], "sharded_1": []}
+    for name in ("single", "sharded_1", "sharded_1", "single"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "single":
+            path_linear_sgd_sweep(None, p, bench, device="cuda")
+        else:
+            path_linear_sgd_sweep_sharded(None, p, default_mesh(1, "cuda"),
+                                          bench)
+        runs[name].append(time.perf_counter() - t0)
+    say("sharded_sweep", card_line, part="vs_single", engine_s=runs)
+
+    out = {}
+    for n in (1, SHARDS):
+        t0 = time.perf_counter()
+        x = path_linear_sgd_sweep_sharded(None, cert["params"],
+                                          default_mesh(n, "cuda"),
+                                          cert["pidx"])
+        certify("sharded_sweep", card_line, cert, x, time.perf_counter() - t0,
+                shards=n, shard_len=shard_len(cert["pidx"], n))
+        out[n] = x
+    return out[1]
+
+
+def phase_sharded_layout(gfa_in, tmp, card_line):
+    """``-p L --dimensions 2 --engine sweep-sharded`` through the CLI,
+    and the sharded layout certificate on ``SHARDS`` shards of the card,
+    2D and 3D."""
+    from gfasort_tpu_torch.bench_util import layout_quality_vs_oracle
+    from gfasort_tpu_torch.index import PathIndex
+    from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
+    from gfasort_tpu_torch.ops.sweep_plan import make_sharded_layout_plan
+    from gfasort_tpu_torch.parallel import default_mesh
+    from gfasort_tpu_torch.params import LayoutSGDParams
+
+    pidx = PathIndex.from_graph(load_gfa_numeric_fast(gfa_in))
+    lp = replace(LayoutSGDParams().derive_from_graph(pidx, 2), iter_max=30)
+    n_cards = default_mesh(device="cuda").size
+    plan = make_sharded_layout_plan(pidx, lp, shard_len(pidx, n_cards))
+    del pidx
+    secs, events, launches, log = cli_step(
+        gfa_in, tmp, "sharded_layout",
+        ["-p", "L", "--dimensions", "2", "--engine", "sweep-sharded",
+         "--layout-out", os.path.join(tmp, "sharded_layout.tsv")])
+    l_s = step_seconds(events, "2D layout")
+    if launches["dense_apply_nd"] != plan.n_exec * n_cards:
+        raise AssertionError(f"{launches['dense_apply_nd']} nD kernel "
+                             f"launches, expected {plan.n_exec * n_cards}")
+    stress = layout_stress(log)
+    say("sharded_layout", card_line, part="cli", dims=2, shards=n_cards,
+        cli_s=secs, layout_step_s=l_s, stress=stress,
+        consensus_every=plan.consensus_every, n_sweeps=plan.n_sweeps,
+        exec_sweeps=plan.n_exec, proposals=plan.proposals,
+        kernel_launches=launches, path_hashes_preserved=True)
+    for dims in (2, 3):
+        reset_launches()
+        t0 = time.perf_counter()
+        q = layout_quality_vs_oracle(dims=dims, device="cuda",
+                                     engine="sweep-sharded",
+                                     mesh=default_mesh(SHARDS, "cuda"),
+                                     **ND_CERT_KW)
+        if q is None:
+            raise AssertionError("the C++ layout oracle cannot be built")
+        ok = q["ratio"] <= STRESS_RATIO_MAX
+        say("sharded_layout", card_line, part="certificate", shards=SHARDS,
+            seconds=time.perf_counter() - t0, passed=ok,
+            kernel_launches=read_launches(), **ND_CERT_KW, **q)
+        if not ok:
+            raise AssertionError(f"sharded layout certificate failed: {q}")
+
+
+def phase_sharded_batched(gfa_in, tmp, cert, card_line):
+    """``-p Y --engine sharded`` through the CLI, and the sharded batched
+    certificate at 1 and ``SHARDS`` shards of the card."""
+    from gfasort_tpu_torch.index import PathIndex
+    from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
+    from gfasort_tpu_torch.ops.sgd import build_schedule, effective_batch
+    from gfasort_tpu_torch.parallel import default_mesh, path_linear_sgd_sharded
+    from gfasort_tpu_torch.params import YgsParams
+
+    g0 = load_gfa_numeric_fast(gfa_in)
+    params = replace(YgsParams.from_graph(g0).path_sgd,
+                     iter_max=BATCHED_CLI_ITER)
+    del g0
+    n_cards = default_mesh(device="cuda").size
+    b_local = -(-effective_batch(params) // n_cards)
+    n_rounds = build_schedule(params, b_local * n_cards)[3]
+    secs, events, launches, _ = cli_step(
+        gfa_in, tmp, "sharded_batched",
+        ["-p", "Y", "--engine", "sharded", "--iter-max", str(BATCHED_CLI_ITER)])
+    y_s = step_seconds(events, "SGD")
+    say("sharded_batched", card_line, part="cli", shards=n_cards,
+        iter_max=BATCHED_CLI_ITER, batch_local=b_local, rounds=n_rounds,
+        cli_s=secs, y_step_s=y_s, rounds_per_s=n_rounds / y_s,
+        pair_updates_per_s=n_rounds * b_local * n_cards / y_s,
+        kernel_launches=launches, path_hashes_preserved=True)
+    p = replace(cert["params"], pow_mode="fpp")
+    for n in (1, SHARDS):
+        b_local = -(-effective_batch(p) // n)
+        n_rounds = build_schedule(p, b_local * n)[3]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = path_linear_sgd_sharded(None, p, default_mesh(n, "cuda"),
+                                    cert["pidx"])
+        secs = time.perf_counter() - t0
+        certify("sharded_batched", card_line, cert, x, secs, shards=n,
+                dtype=p.dtype, pow_mode="fpp", batch_local=b_local,
+                rounds=n_rounds, rounds_per_s=n_rounds / secs)
+
+
+def phase_distributed(cert, x_no_group, card_line):
+    """A one-rank NCCL group from the ``GFASORT_*`` variables; the sharded
+    sweep on the certificate workload through it equals the run with no
+    group bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gfasort_tpu_torch.parallel import path_linear_sgd_sweep_sharded
+    from gfasort_tpu_torch.parallel.mesh import default_mesh, init_distributed
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = {"GFASORT_COORDINATOR": f"127.0.0.1:{port}",
+           "GFASORT_NUM_PROCESSES": "1", "GFASORT_PROCESS_ID": "0"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        init_distributed(device="cuda")
+        init_s = time.perf_counter() - t0
+        mesh = default_mesh(device="cuda")
+        if mesh.group is None or dist.get_backend() != "nccl":
+            raise AssertionError("no NCCL process group")
+        reset_launches()
+        t0 = time.perf_counter()
+        x = path_linear_sgd_sweep_sharded(None, cert["params"], mesh,
+                                          cert["pidx"])
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        same = bool(np.array_equal(x, x_no_group))
+        say("distributed", card_line, backend=dist.get_backend(),
+            world=dist.get_world_size(), shards=mesh.size, init_s=init_s,
+            engine_s=secs, equals_no_group=same, kernel_launches=launches)
+        if not same:
+            raise AssertionError("the NCCL run differs from the run with no "
+                                 "process group")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def kernel_entry(name, source, replaces, launches, cases, main_case,
                  library_ms=None, note=None):
     """One entry of the kernels line: the path's launch count and the
@@ -972,6 +1230,10 @@ def main() -> int:
                          "hash")
         phase_sweep_mode("sweep_threefry", bench, cert, card_line, "float32",
                          "threefry")
+        x_sharded = phase_sharded_sweep(gfa_in, tmp, bench, cert, card_line)
+        phase_sharded_layout(gfa_in, tmp, card_line)
+        phase_sharded_batched(gfa_in, tmp, cert, card_line)
+        phase_distributed(cert, x_sharded, card_line)
         del bench
         x_batched = phase_batched(cert, card_line)
         phase_checkpoint(cert, x_batched, tmp, card_line)

@@ -8,8 +8,9 @@ the 1D offset-sweep engine (:mod:`.ops.sweep`), the nD layout sweep
 engine (:mod:`.ops.sweep_nd`), their sampler (hash or threefry draws,
 f32 or f64) and node consensus, the bucket-apply kernels written by
 hand in CUDA C++ for Hopper (``csrc/bucket_apply.cu``,
-``csrc/dense_apply_nd.cu``), and the batched engine (:mod:`.ops.sgd`)
-with its checkpointed form (:mod:`.checkpoint`).  It imports ``torch``
+``csrc/dense_apply_nd.cu``), the batched engine (:mod:`.ops.sgd`)
+with its checkpointed form (:mod:`.checkpoint`), and the multi-device
+engines over a mesh of shards (:mod:`.parallel`).  It imports ``torch``
 and never ``jax``.  Entry points:
 :func:`.pipeline.run_pipeline` and ``python -m gfasort_tpu_torch``.
 """

@@ -104,14 +104,16 @@ def layout_quality_vs_oracle(
     *,
     device="cuda",
     engine: str = "sweep",
+    mesh=None,
     **sweep_kw,
 ) -> Optional[dict]:
     """Layout certificate: sampled stress of the port's layout vs the C++
     oracle layout on the same workload and from the same initial
     coordinates.  ``engine``: ``"sweep"`` (f32, ``pow_mode="fast"``,
-    ``sweep_kw`` passed on) or ``"batched"`` (f32 states, the engine's
-    default ``pow_mode="fpp"``).  None when the C++ oracle cannot be
-    built."""
+    ``sweep_kw`` passed on), ``"sweep-sharded"`` (the same on ``mesh``,
+    by default ``default_mesh`` on ``device``) or ``"batched"`` (f32
+    states, the engine's default ``pow_mode="fpp"``).  None when the C++
+    oracle cannot be built."""
     from .native import available, path_linear_sgd_layout_native
     from .ops.exact import calculate_layout_stress_pidx, layout_initial_coords
     from .ops.sweep_nd import path_linear_sgd_layout_sweep
@@ -130,6 +132,13 @@ def layout_quality_vs_oracle(
         lay_s = path_linear_sgd_layout_batched(
             None, replace(lp, pow_mode="fpp"), pidx, init_coords=init,
             device=device)
+    elif engine == "sweep-sharded":
+        from .parallel import (default_mesh,
+                               path_linear_sgd_layout_sweep_sharded)
+
+        lay_s = path_linear_sgd_layout_sweep_sharded(
+            None, lp, mesh or default_mesh(device=device), pidx,
+            init_coords=init, **sweep_kw)
     else:
         lay_s = path_linear_sgd_layout_sweep(
             None, lp, pidx, init_coords=init, device=device, **sweep_kw

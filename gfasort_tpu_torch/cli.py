@@ -4,12 +4,18 @@ Usage::
 
     python -m gfasort_tpu_torch -i in.gfa -o out.gfa [-p sYgs] [--iter-max 100]
         [-t 1] [-v 1] [--dimensions 2] [--layout-out layout.tsv]
-        [--layout-iter 30] [--engine auto|exact|sweep|batched] [--seed N]
-        [--batch B] [--trace-out steps.jsonl] [--device cuda]
+        [--layout-iter 30]
+        [--engine auto|exact|sweep|batched|sharded|sweep-sharded] [--seed N]
+        [--batch B] [--trace-out steps.jsonl] [--device cuda] [--distributed]
 
 The flags are those of ``gfasort_tpu.cli`` that the port serves.  The
 device engine runs on ``--device`` (default ``cuda``); with no CUDA
-device it fails rather than fall back to the CPU.
+device it fails rather than fall back to the CPU.  The sharded engines
+take one shard per visible card (one shard with ``--device cpu``);
+``--distributed`` first joins the process group that the
+``GFASORT_COORDINATOR``, ``GFASORT_NUM_PROCESSES`` and
+``GFASORT_PROCESS_ID`` variables describe (NCCL on cuda, gloo on the
+CPU), and the sharded engines then take one shard per process.
 """
 
 from __future__ import annotations
@@ -49,10 +55,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--layout-iter", type=int, default=30,
                    help="Layout iterations (L step)")
     p.add_argument("--engine", default="auto",
-                   choices=["auto", "exact", "sweep", "batched"],
+                   choices=["auto", "exact", "sweep", "batched", "sharded",
+                            "sweep-sharded"],
                    help="SGD engine: exact oracle / offset-sweep on the "
-                        "device / batched rounds on the device / auto "
-                        "(oracle up to 200k nodes)")
+                        "device / batched rounds on the device / sharded "
+                        "batched rounds / sharded offset-sweep (both over "
+                        "a mesh of shards) / auto (oracle up to 200k nodes)")
     p.add_argument("--seed", type=int, default=None,
                    help="Override the fixed seed (default 9399220)")
     p.add_argument("--batch", type=int, default=None,
@@ -60,12 +68,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-out", default=None,
                    help="Write per-step timing events as JSON lines")
     p.add_argument("--device", default="cuda",
-                   help="Device of the sweep engine (default: cuda)")
+                   help="Device of the device engines, and the shards' "
+                        "device type (default: cuda)")
+    p.add_argument("--distributed", action="store_true",
+                   help="Join a multi-process run (GFASORT_COORDINATOR, "
+                        "GFASORT_NUM_PROCESSES, GFASORT_PROCESS_ID)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.distributed:
+        from .parallel.mesh import init_distributed
+
+        init_distributed(device=args.device)
+
     try:
         validate_pipeline(args.pipeline)
     except ValueError as e:

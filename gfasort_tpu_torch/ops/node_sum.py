@@ -59,15 +59,19 @@ class GatherConsensus:
     slot_node: torch.Tensor     # int64 [NL] node index of each slot
     run: Optional[int] = None   # terms per summed run; None: one run
 
-    def __call__(self, xs: torch.Tensor):
-        """xs [S] or [R, S] -> (xs_new, same shape; xn_sorted [NL] or
-        [R, NL] per-node means)."""
+    def sums(self, xs: torch.Tensor) -> torch.Tensor:
+        """xs [S] or [R, S] -> each slot's node's sum of its steps' values
+        ([NL] or [R, NL]), added in the order described above."""
         x_ext = torch.cat([xs, xs.new_zeros(xs.shape[:-1] + (1,))], dim=-1)
-        sums = torch.cat([
+        return torch.cat([
             _row_sums(x_ext[..., ix.t()],
                       self.run if ix.shape[1] <= _JAX_GATHER_CAP else None)
             for ix in self.class_idx], dim=-1)
-        xn = sums * self.inv_cnt
+
+    def __call__(self, xs: torch.Tensor):
+        """xs [S] or [R, S] -> (xs_new, same shape; xn_sorted [NL] or
+        [R, NL] per-node means)."""
+        xn = self.sums(xs) * self.inv_cnt
         return xn[..., self.node_slot], xn
 
     def to_node_order(self, xn_sorted, x_node_init):

@@ -1,8 +1,10 @@
-"""One jax-free plan for each sweep engine, 1D and nD.
+"""One jax-free plan for each sweep engine, 1D and nD, single-card and
+sharded.
 
-Everything ``gfasort_tpu/ops/sweep.py::build_sweep_runner`` (1D) and
+Everything ``gfasort_tpu/ops/sweep.py::build_sweep_runner`` (1D),
 ``gfasort_tpu/ops/sweep_nd.py::build_sweep_nd_runner`` (the ``L``
-layout) decide on the host before they trace: the shape-aware knobs, the offset
+layout) and their sharded twins in ``gfasort_tpu/parallel/`` decide on
+the host before they trace: the shape-aware knobs, the offset
 set and its rotation phases, the consensus period, the learning-rate
 schedule, the split of each phase's buckets between the hand-written
 bucket kernel (k <= KMAX) and the roll passes (k > KMAX), and the
@@ -14,6 +16,7 @@ engines read come from :func:`.env.sweep_knobs`, read once per plan.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
@@ -26,7 +29,8 @@ from .sweep_policy import (auto_sweep_config, fit_consensus_period,
                            offset_set, phase_structure)
 
 __all__ = ["KMAX", "PhasePlan", "SweepPlan", "make_sweep_plan",
-           "make_layout_plan", "bucket_consts", "executed_sweeps",
+           "make_layout_plan", "make_sharded_sweep_plan",
+           "make_sharded_layout_plan", "bucket_consts", "executed_sweeps",
            "torch_dtype"]
 
 # Largest offset handed to the bucket-apply kernel by default: the JAX
@@ -203,12 +207,15 @@ def _knobs(auto: dict, per_octave, consensus_every, active_frac, rotate,
 
 def _build_plan(pidx: PathIndex, params, per_octave, consensus_every,
                 active_frac, rotate, dense_upto, P: int, dims: int,
-                phase_gate, budget_div: int) -> SweepPlan:
+                phase_gate, budget_div: int,
+                exec_len: Optional[int] = None) -> SweepPlan:
     """The part both engines share.  ``phase_gate(offs, offs_p)``:
     whether a phase's buckets with k <= kmax go to the kernel, from the
     whole offset set and the phase's own; the JAX engines also keep the
     kernel to f32 and off under ``GFASORT_DENSE_KERNEL=xla``.
-    ``budget_div``: the dispatch budget's divisor (1 in 1D, 2 in nD)."""
+    ``budget_div``: the dispatch budget's divisor (1 in 1D, 2 in nD).
+    ``exec_len``: the steps one dispatch element counts per sweep (S; a
+    sharded engine's shard length L)."""
     if params.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {params.dtype!r}")
     knobs = sweep_knobs()
@@ -244,10 +251,24 @@ def _build_plan(pidx: PathIndex, params, per_octave, consensus_every,
         dense_kernel=use_kernel and phase_gate(offs, offs), phases=phases,
         sweep_eta=sweep_eta, sweep_cool=sweep_cool,
         updates_per_sweep=updates_per_sweep,
-        n_exec=executed_sweeps(len(sweep_eta), consensus_every, S,
+        n_exec=executed_sweeps(len(sweep_eta), consensus_every,
+                               S if exec_len is None else exec_len,
                                knobs.dispatch_elems // budget_div),
         dtype=params.dtype, knobs=knobs, dims=dims,
     )
+
+
+def _whole_set_gate(offs, offs_p):
+    """The 1D engines' ``dense_kernel_enabled`` under the forced kernel:
+    at least two offsets <= 8 in the whole offset set, decided once for
+    every phase."""
+    return int((offs <= 8).sum()) >= 2
+
+
+def _phase_gate(offs, offs_p):
+    """The nD engines' gate: at least two offsets <= 8 in the phase's own
+    offset set."""
+    return int((offs_p <= 8).sum()) >= 2
 
 
 def make_sweep_plan(
@@ -265,11 +286,7 @@ def make_sweep_plan(
     auto = auto_sweep_config(pidx.total_steps, pidx.num_nodes)
     *knobs, P = _knobs(auto, per_octave, consensus_every, active_frac,
                        rotate, dense_upto, proposals)
-    # the JAX engine's dense_kernel_enabled under the forced kernel: at
-    # least two dense buckets in the whole offset set, decided once for
-    # every phase
-    return _build_plan(pidx, params, *knobs, P, 1,
-                       lambda offs, offs_p: int((offs <= 8).sum()) >= 2, 1)
+    return _build_plan(pidx, params, *knobs, P, 1, _whole_set_gate, 1)
 
 
 def make_layout_plan(
@@ -293,5 +310,65 @@ def make_layout_plan(
                        rotate, dense_upto, proposals)
     # the TPU kernel's input-window clamp, kept for parity
     P = min(P, 4 * max(1, 4 - D))
-    return _build_plan(pidx, params, *knobs, P, D,
-                       lambda offs, offs_p: int((offs_p <= 8).sum()) >= 2, 2)
+    return _build_plan(pidx, params, *knobs, P, D, _phase_gate, 2)
+
+
+def _sharded_auto(pidx: PathIndex, L: int, layout: bool) -> dict:
+    """``auto_sweep_config`` with the consensus period raised by shard
+    length (``parallel.sweep_shard.shard_consensus_every``)."""
+    from ..parallel.sweep_shard import shard_consensus_every
+
+    S = pidx.total_steps
+    auto = auto_sweep_config(S, pidx.num_nodes, layout=layout)
+    return dict(auto, consensus_every=shard_consensus_every(
+        L, auto["consensus_every"], S))
+
+
+def make_sharded_sweep_plan(
+    pidx: PathIndex,
+    params: PathSGDParams,
+    L: int,
+    per_octave=None,
+    consensus_every=None,
+    active_frac=None,
+    rotate=None,
+    dense_upto=None,
+    proposals=None,
+) -> SweepPlan:
+    """Resolve the sharded 1D engine's knobs exactly as
+    ``gfasort_tpu/parallel/sweep_shard.py::build_sharded_sweep`` does for
+    shards of ``L`` steps: the default consensus period raised by shard
+    length, ``updates_per_sweep`` from the total S, the executed sweeps
+    counted at ``L`` steps per sweep with the 1D dispatch budget, and the
+    kernel gate over the whole offset set."""
+    auto = _sharded_auto(pidx, L, layout=False)
+    *knobs, P = _knobs(auto, per_octave, consensus_every, active_frac,
+                       rotate, dense_upto, proposals)
+    return _build_plan(pidx, params, *knobs, P, 1, _whole_set_gate, 1,
+                       exec_len=L)
+
+
+def make_sharded_layout_plan(
+    pidx: PathIndex,
+    params: LayoutSGDParams,
+    L: int,
+    per_octave=None,
+    consensus_every=None,
+    active_frac=None,
+    rotate=None,
+    dense_upto=None,
+    proposals=None,
+) -> SweepPlan:
+    """Resolve the sharded nD engine's knobs exactly as
+    ``gfasort_tpu/parallel/sweep_nd_shard.py::build_sharded_sweep_nd``
+    does: ``auto_sweep_config(layout=True)`` with the consensus period
+    raised by shard length, the executed sweeps counted at ``L`` steps
+    per sweep with half the dispatch budget, and the kernel gate decided
+    per phase.  Unlike :func:`make_layout_plan` there is no proposal
+    clamp: the sharded engine hands its P to every shard unchanged."""
+    D = int(params.dimensions)
+    auto = _sharded_auto(pidx, L, layout=True)
+    *knobs, P = _knobs(auto, per_octave, consensus_every, active_frac,
+                       rotate, dense_upto, proposals)
+    return _build_plan(pidx, params, *knobs, P, D, _phase_gate, 2,
+                       exec_len=L)

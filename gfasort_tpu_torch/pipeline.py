@@ -10,10 +10,16 @@ and the exact oracle branches are the port's copies of
   engine for ``Y``, the nD layout engine for ``L``;
 * ``"batched"`` — the port's batched-synchronous engines on ``device``
   (``ops/sgd.py``), 1D for ``Y`` and nD for ``L``;
+* ``"sharded"`` — the sharded batched engine (``parallel/sgd_shard.py``)
+  for ``Y`` over a mesh of shards;
+* ``"sweep-sharded"`` — the sharded sweep engine
+  (``parallel/sweep_shard.py``) for ``Y``;
 * ``"auto"`` — the oracle up to 200,000 nodes, the sweep engines above.
 
-The multi-device engines are not ported yet and raise
-``NotImplementedError``.
+In ``L`` both sharded names run the sharded nD layout
+(``parallel/sweep_nd_shard.py``).  The sharded engines run on ``mesh``,
+by default :func:`~.parallel.mesh.default_mesh` on ``device``'s type
+(every visible card on cuda, one shard on the CPU).
 """
 
 from __future__ import annotations
@@ -45,10 +51,7 @@ PIPELINE_CHARS = "YgsSuL"
 # wins on throughput.
 AUTO_ORACLE_MAX_NODES = 200_000
 
-_NOT_PORTED = {
-    "sharded": "the multi-device engines (ROADMAP queue 1: parallel/)",
-    "sweep-sharded": "the multi-device engines (ROADMAP queue 1: parallel/)",
-}
+_ENGINES = ("exact", "sweep", "batched", "sharded", "sweep-sharded")
 
 
 def validate_pipeline(pipeline: str) -> None:
@@ -65,21 +68,27 @@ def validate_pipeline(pipeline: str) -> None:
 
 def _resolve_engine(engine: str, n_nodes: int, *, layout: bool = False) -> str:
     """The engine that runs; ``layout``: the ``L`` step, which (as the JAX
-    ``layout_step``) sends every other engine name to the batched engine."""
+    ``layout_step``) sends both sharded names to the sharded nD layout and
+    every other engine name to the batched engine."""
     if engine == "auto":
         return "exact" if n_nodes <= AUTO_ORACLE_MAX_NODES else "sweep"
-    if engine in _NOT_PORTED:
-        raise NotImplementedError(f"engine {engine!r}: {_NOT_PORTED[engine]} "
-                                  "is not ported to PyTorch yet")
-    if engine not in ("exact", "sweep", "batched"):
+    if layout and engine in ("sharded", "sweep-sharded"):
+        return "sweep-sharded"
+    if engine not in _ENGINES:
         if layout:
             return "batched"
         raise ValueError(f"unknown engine {engine!r}")
     return engine
 
 
+def _mesh(mesh, device):
+    from .parallel.mesh import default_mesh
+
+    return mesh if mesh is not None else default_mesh(device=device)
+
+
 def _sgd_order(graph: BidirectedGraph, params: PathSGDParams, engine: str,
-               threads: int, device):
+               threads: int, device, mesh=None):
     engine = _resolve_engine(engine, PathIndex.from_graph(graph).num_nodes)
     if engine == "exact":
         if threads > 1:
@@ -102,6 +111,14 @@ def _sgd_order(graph: BidirectedGraph, params: PathSGDParams, engine: str,
         from .ops.sgd import path_sgd_sort_batched
 
         return path_sgd_sort_batched(graph, params, device=device)
+    if engine == "sharded":
+        from .parallel import path_sgd_sort_sharded
+
+        return path_sgd_sort_sharded(graph, params, _mesh(mesh, device))
+    if engine == "sweep-sharded":
+        from .parallel import path_sgd_sort_sweep_sharded
+
+        return path_sgd_sort_sweep_sharded(graph, params, _mesh(mesh, device))
     from .ops.sweep import path_sgd_sort_sweep
 
     return path_sgd_sort_sweep(graph, params, device=device)
@@ -109,9 +126,10 @@ def _sgd_order(graph: BidirectedGraph, params: PathSGDParams, engine: str,
 
 def sgd_sort_only(graph: BidirectedGraph, params: PathSGDParams,
                   engine: str = "auto", threads: int = 1, *,
-                  device="cuda") -> None:
+                  device="cuda", mesh=None) -> None:
     """'Y' step (src/ygs.rs:195-206): SGD order, then renumber."""
-    graph.apply_ordering(_sgd_order(graph, params, engine, threads, device))
+    graph.apply_ordering(_sgd_order(graph, params, engine, threads, device,
+                                    mesh))
 
 
 def groom_only(graph: BidirectedGraph) -> None:
@@ -147,9 +165,11 @@ def layout_step(
     stress_samples: int = 10_000,
     *,
     device="cuda",
+    mesh=None,
 ) -> Tuple[Layout, float]:
     """'L' step (src/bin/gfasort.rs:265-274): nD layout + sampled stress.
-    The sweep and batched engines run on ``device``."""
+    The sweep and batched engines run on ``device``, the sharded layout on
+    ``mesh``."""
     pidx = PathIndex.from_graph(graph)
     eng = _resolve_engine(engine, pidx.num_nodes, layout=True)
     if eng == "exact":
@@ -170,6 +190,11 @@ def layout_step(
 
         layout = path_linear_sgd_layout_batched(graph, params, pidx,
                                                 device=device)
+    elif eng == "sweep-sharded":
+        from .parallel import path_linear_sgd_layout_sweep_sharded
+
+        layout = path_linear_sgd_layout_sweep_sharded(
+            graph, params, _mesh(mesh, device), pidx=pidx)
     else:
         from .ops.sweep_nd import path_linear_sgd_layout_sweep
 
@@ -211,10 +236,12 @@ def run_pipeline(
     threads: int = 1,
     *,
     device="cuda",
+    mesh=None,
 ) -> PipelineResult:
     """Run a pipeline string left to right on ``graph`` (mutating it);
     parameters are derived from the input graph once, before any step,
-    as in ``gfasort_tpu.pipeline.run_pipeline``."""
+    as in ``gfasort_tpu.pipeline.run_pipeline``.  ``mesh``: the sharded
+    engines' mesh (default: ``default_mesh`` on ``device``'s type)."""
     validate_pipeline(pipeline)
     ygs_params = YgsParams.from_graph(graph, verbose=verbose)
     sgd_params = replace(ygs_params.path_sgd, iter_max=iter_max)
@@ -243,7 +270,8 @@ def run_pipeline(
         with tracer.step(names[c], step=step_num + 1,
                          nodes=graph.node_count(), edges=len(graph.edges)):
             if c == "Y":
-                sgd_sort_only(graph, sgd_params, engine, threads, device=device)
+                sgd_sort_only(graph, sgd_params, engine, threads,
+                              device=device, mesh=mesh)
             elif c == "g":
                 groom_only(graph)
             elif c == "s":
@@ -254,7 +282,7 @@ def run_pipeline(
                 unchop_only(graph)
             elif c == "L":
                 layout, stress = layout_step(graph, layout_params, engine,
-                                             device=device)
+                                             device=device, mesh=mesh)
                 result.layout = layout
                 result.layout_stress = stress
                 if verbose >= 1:

@@ -184,6 +184,8 @@ ND_CASES = {
     "d2_p1_dense": (7000, 2, [(k, k - 1) for k in range(1, 9)], 1),
     "d2_p8_phase": (70_001, 2, PHASE, 8),
     "d3_p4_phase": (30_000, 3, PHASE, 4),
+    # the sharded 3D layout's unclamped P = 8 (2 words)
+    "d3_p8_phase": (30_000, 3, PHASE, 8),
     "d3_p1_mid": (70_000, 3, [(1, 0), (5, 4), (181, 9), (1449, 11),
                               (8192, 13)], 1),
     "d8_p12_past_end": (300, 8, [(1, 0), (512, 1)], 12),
@@ -524,3 +526,81 @@ def test_batched_graph_replay_equals_eager_loop(cuda, monkeypatch):
                                                 device=cuda).coords)
     for a, b in zip(graphs, eager):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_sharded_sweep_on_cuda_certifies_against_cpu_mesh(cuda, n_shards):
+    """The sharded 1D sweep on a card mesh (the shards share the card)
+    launches the bucket kernel once per shard and sweep, repeats itself
+    bit for bit, and certifies against the same shards on the CPU (the
+    sampler's f32 exp / log differ between the devices in the last
+    place, as for the single-card engine)."""
+    from gfasort_tpu_torch.ops.sweep_plan import make_sharded_sweep_plan
+    from gfasort_tpu_torch.parallel import default_mesh
+    from gfasort_tpu_torch.parallel.sweep_shard import (
+        build_sharded_sweep, path_linear_sgd_sweep_sharded)
+
+    pidx = synthetic_path_index(3000, 4, 3000, seed=3)
+    p = replace(PathSGDParams().derive_from_graph(pidx), dtype="float32",
+                iter_max=10)
+    kw = dict(proposals=12, per_octave=2, dense_upto=4, rotate=2,
+              consensus_every=4)
+    mesh = default_mesh(n_shards, "cuda")
+    L = build_sharded_sweep(pidx, p, mesh, **kw)[3]["shard_len"]
+    plan = make_sharded_sweep_plan(pidx, p, L, **kw)
+    before = bucket_apply.launches
+    x_gpu = path_linear_sgd_sweep_sharded(None, p, mesh, pidx, **kw)
+    assert bucket_apply.launches - before == plan.n_exec * n_shards
+    np.testing.assert_array_equal(
+        x_gpu, path_linear_sgd_sweep_sharded(None, p, mesh, pidx, **kw))
+    x_cpu = path_linear_sgd_sweep_sharded(
+        None, p, default_mesh(n_shards, "cpu"), pidx, **kw)
+    assert np.isfinite(x_gpu).all()
+    q = rank_quality(np.argsort(x_gpu, kind="stable"),
+                     np.argsort(x_cpu, kind="stable"))
+    assert q["rank_mae_frac"] <= 2e-3 and q["spearman"] >= 0.999, q
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_sharded_layout_on_cuda_certifies_against_cpu_mesh(cuda, n_shards,
+                                                            dims):
+    """The sharded layout at P = 8 (in 3D the unclamped 2 words) on a
+    card mesh: the nD kernel launches, the run repeats bit for bit, and
+    its stress certifies against the same shards on the CPU."""
+    from gfasort_tpu_torch.parallel import (
+        default_mesh, path_linear_sgd_layout_sweep_sharded)
+
+    pidx = synthetic_path_index(3000, 4, 3000, seed=3)
+    lp = replace(LayoutSGDParams().derive_from_graph(pidx, dims),
+                 dtype="float32", pow_mode="fast", iter_max=5)
+    kw = dict(proposals=8, per_octave=3, dense_upto=4, rotate=2,
+              consensus_every=4, active_frac=1.0)
+    mesh = default_mesh(n_shards, "cuda")
+    before = dense_apply_nd.launches
+    lay = path_linear_sgd_layout_sweep_sharded(None, lp, mesh, pidx, **kw)
+    assert dense_apply_nd.launches > before
+    np.testing.assert_array_equal(
+        lay.coords,
+        path_linear_sgd_layout_sweep_sharded(None, lp, mesh, pidx, **kw).coords)
+    lay_cpu = path_linear_sgd_layout_sweep_sharded(
+        None, lp, default_mesh(n_shards, "cpu"), pidx, **kw)
+    assert np.isfinite(lay.coords).all()
+    s_gpu = calculate_layout_stress_pidx(pidx, lay, 3000)
+    s_cpu = calculate_layout_stress_pidx(pidx, lay_cpu, 3000)
+    assert s_gpu / s_cpu <= 1.5, (s_gpu, s_cpu)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_sharded_batched_on_cuda_equals_cpu_mesh(cuda, n_shards):
+    """f64 / ``fpp``: the sharded batched engine on a card mesh (its
+    round loop replayed as a CUDA graph) equals the same shards on the
+    CPU (the eager loop) bit for bit."""
+    from gfasort_tpu_torch.parallel import default_mesh, path_linear_sgd_sharded
+
+    pidx = synthetic_path_index(2000, 3, 3000, seed=5)
+    p = replace(PathSGDParams().derive_from_graph(pidx), dtype="float64",
+                pow_mode="fpp", iter_max=5, batch=1024)
+    x_gpu = path_linear_sgd_sharded(None, p, default_mesh(n_shards, "cuda"), pidx)
+    x_cpu = path_linear_sgd_sharded(None, p, default_mesh(n_shards, "cpu"), pidx)
+    np.testing.assert_array_equal(x_gpu, x_cpu)

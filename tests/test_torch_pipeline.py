@@ -51,22 +51,21 @@ def test_auto_engine_small_graph_matches_jax_pipeline():
 
 @pytest.mark.parametrize("engine", ["batched", "sharded", "sweep-sharded"])
 def test_unported_engines_raise(engine):
-    """The multi-device engines raise; the batched engine, ported since,
-    runs and keeps every path."""
+    """Every engine name is ported now: the batched and both multi-device
+    engines run ``Y`` on the CPU (one shard by default) and keep every
+    path; an unknown name still raises."""
     g, _ = _graph(nodes=200, steps=200)
-    if engine == "batched":
-        hashes = g.compute_all_path_hashes()
-        run_pipeline(g, "Y", iter_max=2, engine=engine, device="cpu")
-        assert g.compute_all_path_hashes() == hashes
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_pipeline(g, "Y", iter_max=2, engine=engine, device="cpu")
+    hashes = g.compute_all_path_hashes()
+    run_pipeline(g, "Y", iter_max=2, engine=engine, device="cpu")
+    assert g.compute_all_path_hashes() == hashes
+    with pytest.raises(ValueError, match="unknown engine"):
+        run_pipeline(g, "Y", iter_max=2, engine=engine + "-x", device="cpu")
 
 
 def test_layout_exact_works_and_device_layout_raises():
     """The engines of ``L`` run: the oracle, and the device engines (nD
-    sweep, and batched since it was ported) here on the CPU; none
-    changes the graph.  Only the unported engines raise."""
+    sweep, batched, and the sharded layout that both sharded names run)
+    here on the CPU; none changes the graph."""
     g, _ = _graph(nodes=300, steps=300)
     hashes = g.compute_all_path_hashes()
     res = run_pipeline(g, "L", layout_iter=2, engine="exact", device="cpu")
@@ -83,8 +82,12 @@ def test_layout_exact_works_and_device_layout_raises():
     res = run_pipeline(g, "L", layout_iter=2, engine="batched", device="cpu")
     assert res.layout.num_nodes == g.node_count()
     assert np.isfinite(res.layout.coords).all() and res.layout_stress > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_pipeline(g, "L", layout_iter=2, engine="sharded", device="cpu")
+    a = run_pipeline(g, "L", layout_iter=2, engine="sharded", device="cpu")
+    b = run_pipeline(g, "L", layout_iter=2, engine="sweep-sharded",
+                     device="cpu")
+    assert np.isfinite(a.layout.coords).all() and a.layout_stress > 0
+    np.testing.assert_array_equal(a.layout.coords, b.layout.coords)
+    assert g.compute_all_path_hashes() == hashes
 
 
 def test_layout_step_sends_other_engine_names_to_batched():
@@ -128,9 +131,10 @@ def test_sweep_on_cuda_without_cuda_raises(tmp_path):
 
 def test_port_never_imports_jax():
     """Every module of the port and the smoke script, then the 1D sweep
-    (f32 and f64), ``sYgsL``, the batched engines, the checkpointed
-    runner and the native oracle on the CPU: neither ``jax`` nor any
-    module of the JAX package ``gfasort_tpu`` is ever imported."""
+    (f32 and f64), ``sYgsL``, the batched engines, the multi-device
+    engines (``parallel/``), the checkpointed runner and the native
+    oracle on the CPU: neither ``jax`` nor any module of the JAX package
+    ``gfasort_tpu`` is ever imported."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         from dataclasses import replace
@@ -160,6 +164,13 @@ def test_port_never_imports_jax():
                                     device="cpu")
         pipeline.run_pipeline(g, "YL", iter_max=2, layout_iter=2,
                               engine="batched", device="cpu")
+        # the multi-device engines on a CPU mesh of two shards
+        from gfasort_tpu_torch import parallel
+        mesh = parallel.default_mesh(2, "cpu")
+        pipeline.run_pipeline(g, "YL", iter_max=2, layout_iter=2,
+                              engine="sweep-sharded", device="cpu", mesh=mesh)
+        pipeline.run_pipeline(g, "Y", iter_max=2, engine="sharded",
+                              device="cpu", mesh=mesh)
         import os, tempfile
         from gfasort_tpu_torch.checkpoint import path_linear_sgd_checkpointed
         with tempfile.TemporaryDirectory() as d:
