@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases (they run in the order 1-8, 13's CLI run, 9, 11-12, 15-18, 13-14,
-10); any failed check raises and the script exits non-zero:
+Phases (they run in the order 1-5, 19, 6-8, 13's CLI run, 20-21, 9,
+11-12, 15-18, 22, 13-14, 10); any failed check raises and the script
+exits non-zero:
 
 1. build      — compile the hand-written CUDA kernels from ``csrc/``, one
                 ``nvcc`` per source, all at once (timed).
@@ -64,8 +65,9 @@ Phases (they run in the order 1-8, 13's CLI run, 9, 11-12, 15-18, 13-14,
 12. sweep_threefry — the same at float32 with ``GFASORT_SWEEP_RNG=
                 threefry``: the bucket kernel launches once per executed
                 sweep on the bench index; the certificate as above.
-13. batched   — the batched engine: ``-p Y --engine batched`` on the
-                bench GFA through ``cli.main`` (hashes and counts kept,
+13. batched   — the batched engine: ``-p Y --engine batched
+                --iter-max 30`` (BATCHED_CLI_ITER, cut from the CLI's 100)
+                on the bench GFA through ``cli.main`` (hashes and counts kept,
                 rounds/s and pair-updates/s from the trace); its order
                 certified on the 100k-node workload at f64 and f32
                 (``pow_mode="fpp"``), the f64 run repeated and compared
@@ -76,8 +78,9 @@ Phases (they run in the order 1-8, 13's CLI run, 9, 11-12, 15-18, 13-14,
                 workload, stopped after two segments and resumed, equal
                 to the single-shot run; a checkpoint of another seed is
                 refused.
-15. sharded_sweep — the sharded 1D sweep (``parallel/sweep_shard.py``):
-                ``-p Y --engine sweep-sharded`` on the bench GFA through
+15. sharded_sweep — the sharded 1D sweep (``parallel/sweep_shard.py``),
+                at SWEEP_MODE_ITER = 30 iterations on the bench GFA and
+                index: ``-p Y --engine sweep-sharded`` on the bench GFA through
                 ``cli.main`` (a one-shard mesh of the card), a direct
                 call on 4 shards of the card (L = 1M), each with its
                 seconds, pair-updates/s, ce, executed sweeps and bucket
@@ -92,7 +95,8 @@ Phases (they run in the order 1-8, 13's CLI run, 9, 11-12, 15-18, 13-14,
                 against the C++ oracle on the 20k-node workload with the
                 bench's nD knobs, 2D and 3D (P = 8, unclamped): stress
                 ratio <= 1.5.
-17. sharded_batched — ``-p Y --engine sharded`` on the bench GFA through
+17. sharded_batched — ``-p Y --engine sharded --iter-max 30`` on the
+                bench GFA through
                 ``cli.main`` (seconds, rounds/s), and the sharded batched
                 engine's certificate (f32, ``pow_mode="fpp"``) at 1 and 4
                 shards.
@@ -101,6 +105,33 @@ Phases (they run in the order 1-8, 13's CLI run, 9, 11-12, 15-18, 13-14,
                 free local port; the sharded sweep on the 100k-node
                 workload through it equals the run with no group bit for
                 bit.
+19. entry     — ``gfasort_tpu_torch.entry``: ``entry("cuda")``'s batched
+                SGD round on the card within rtol 1e-5 / atol 1e-4 of the
+                same round on the CPU, and ``dryrun_multichip`` (sharded
+                batched, sharded sweep, sharded 2D layout) on 4 shards of
+                the card, all finite.
+20. server    — ``-p Y --engine sweep --iter-max 30`` on the bench GFA
+                twice through ``--server`` from fresh client processes
+                (``tools/e2e_server_warm.py``: the first spawns the daemon
+                on a temporary socket, the second is served warm, the
+                daemon is stopped): one daemon pid, byte-identical
+                outputs, both equal to the same job run in-process through
+                ``cli.main`` (its bucket-kernel launches counted); each
+                run's client wall, served wall and ``SGD`` step; in a
+                fresh process, the torch import, the CUDA context and the
+                kernel library's load, then the ``Y`` step taken apart
+                twice on the host clock (path index, runner build and
+                cache hit, state, run, order, renumbering) with the device
+                bytes the cached runner keeps.
+21. e2e       — ``sYgsuL`` as ``tools/e2e_chromosome.py`` runs it (iter 30,
+                layout iter 10, 2D, the sweep engine) in-process on the
+                bench GFA: path hashes kept, the node count not grown
+                (unchop merges nodes), both bucket kernels launched, the
+                TSV finite; each step's seconds from the trace.
+22. scaling   — ``tools/bench_scaling.py`` on 1, 2 and 4 shards of the
+                card at its strong-scaling workload (the bench index), one
+                row per mesh size.  The shards share one card: this runs
+                the code, it does not measure scaling.
 
 Then the ``nvidia-smi`` card line, one JSON line describing every kernel,
 and ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -141,13 +172,24 @@ SHIFT_SIZES = (1 << 22, 1 << 26)
 # the bench's nD knobs (ce 48, rotate 12, frac 1.0, dense_upto 4, P 8)
 ND_CERT_KW = dict(consensus_every=48, rotate=12, active_frac=1.0,
                   dense_upto=4, proposals=8)
-# iterations of the f64 and threefry sweeps on the bench index (cut from
-# the bench's 100 to keep the script's time)
+# iterations of the f64 and threefry sweeps and of the sharded sweep's
+# runs on the bench index and GFA (cut from the bench's 100 to keep the
+# script's time)
 SWEEP_MODE_ITER = 30
-# the batched engine's CLI run on the bench GFA (the CLI default) and
-# the checkpoint phase's segment
-BATCHED_CLI_ITER = 100
+# the batched engines' CLI runs on the bench GFA (cut from the CLI
+# default of 100 to keep the script's time) and the checkpoint phase's
+# segment
+BATCHED_CLI_ITER = 30
 CKPT_SEGMENT = 1000
+# entry()'s round on the card against the CPU's: the sampler's f32
+# exp / log may differ between the two in the last place
+ENTRY_RTOL, ENTRY_ATOL = 1e-5, 1e-4
+# the served job's, and the e2e pipeline's, iterations (as
+# tools/e2e_server_warm.py and tools/e2e_chromosome.py run them)
+SERVER_ITER = 30
+E2E_ITER, E2E_LAYOUT_ITER = 30, 10
+# timed runs per mesh size in the scaling phase
+SCALING_REPS = 1
 # published H100 SXM peaks: HBM bytes/s and f32 operations/s (no tensor
 # cores)
 HBM_BYTES_S = 3.35e12
@@ -401,10 +443,12 @@ def gfa_truth(gfa_in):
     return g.compute_all_path_hashes(), (g.node_count(), len(g.edges))
 
 
-def cli_step(gfa_in, tmp, name, argv):
+def cli_step(gfa_in, tmp, name, argv, counts_kept: bool = True):
     """``cli.main`` on ``gfa_in`` with every kernel counter from 0; the
-    path hashes and the node and edge counts must be kept.  Returns (the
-    call's seconds, its trace events, the launches, the CLI's log)."""
+    path hashes must be kept, and the node and edge counts too (with
+    ``counts_kept=False``, for a pipeline that unchops: the node count
+    must not grow).  Writes ``<tmp>/<name>.gfa``.  Returns (the call's
+    seconds, its trace events, the launches, the CLI's log)."""
     from gfasort_tpu_torch import cli
     from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
 
@@ -426,8 +470,10 @@ def cli_step(gfa_in, tmp, name, argv):
     g1 = load_gfa_numeric_fast(out)
     if g1.compute_all_path_hashes() != hashes0:
         raise AssertionError(f"{name}: path hashes changed")
-    if (g1.node_count(), len(g1.edges)) != counts0:
+    if counts_kept and (g1.node_count(), len(g1.edges)) != counts0:
         raise AssertionError(f"{name}: node or edge count changed")
+    if g1.node_count() > counts0[0]:
+        raise AssertionError(f"{name}: the node count grew")
     return secs, events, launches, log.getvalue()
 
 
@@ -485,6 +531,19 @@ def phase_main(gfa_in, tmp, card_line):
     return launches
 
 
+def check_tsv(tsv, nodes: int) -> None:
+    """The 2D layout TSV holds finite coordinates for both ends of every
+    one of ``nodes`` nodes, in order."""
+    with open(tsv) as fh:
+        vals = np.array(fh.read().split()[5:], dtype=np.float64).reshape(-1, 5)
+    if vals.shape[0] != nodes or not np.array_equal(vals[:, 0],
+                                                    np.arange(nodes)):
+        raise AssertionError(f"the TSV holds {vals.shape[0]} rows, "
+                             f"expected {nodes}")
+    if not np.isfinite(vals[:, 1:]).all():
+        raise AssertionError("the TSV holds non-finite coordinates")
+
+
 def phase_layout(gfa_in, tmp, card_line):
     """``-p L --dimensions 2`` through the CLI on the bench GFA."""
     from gfasort_tpu_torch.index import PathIndex
@@ -507,21 +566,14 @@ def phase_layout(gfa_in, tmp, card_line):
                              f"expected one per executed sweep ({plan.n_exec})")
     stress = layout_stress(log)
     l_s = step_seconds(events, "2D layout")
-    with open(tsv) as fh:
-        vals = np.array(fh.read().split()[5:], dtype=np.float64).reshape(-1, 5)
-    if vals.shape[0] != nodes0 or not np.array_equal(vals[:, 0],
-                                                     np.arange(nodes0)):
-        raise AssertionError(f"the TSV holds {vals.shape[0]} rows, "
-                             f"expected {nodes0}")
-    if not np.isfinite(vals[:, 1:]).all():
-        raise AssertionError("the TSV holds non-finite coordinates")
+    check_tsv(tsv, nodes0)
     updates = plan.n_sweeps * plan.updates_per_sweep
     say("layout", card_line, dims=2, nodes=nodes0, cli_s=t_cli,
         layout_step_s=l_s, stress=stress, n_sweeps=plan.n_sweeps,
         exec_sweeps=plan.n_exec, proposals=plan.proposals,
         consensus_every=plan.consensus_every, updates=updates,
         pair_updates_per_s_step=updates / l_s, kernel_launches=launches,
-        tsv_rows=int(vals.shape[0]), path_hashes_preserved=True)
+        tsv_rows=nodes0, path_hashes_preserved=True)
     return launches
 
 
@@ -939,12 +991,14 @@ def phase_sharded_sweep(gfa_in, tmp, bench, cert, card_line):
 
     g0 = load_gfa_numeric_fast(gfa_in)
     pidx = PathIndex.from_graph(g0)
-    params = replace(YgsParams.from_graph(g0).path_sgd, iter_max=100)
+    params = replace(YgsParams.from_graph(g0).path_sgd,
+                     iter_max=SWEEP_MODE_ITER)
     del g0
     n_cards = default_mesh(device="cuda").size
     plan = make_sharded_sweep_plan(pidx, params, shard_len(pidx, n_cards))
     secs, events, launches, _ = cli_step(
-        gfa_in, tmp, "sharded_sweep", ["-p", "Y", "--engine", "sweep-sharded"])
+        gfa_in, tmp, "sharded_sweep", ["-p", "Y", "--engine", "sweep-sharded",
+                                       "--iter-max", str(SWEEP_MODE_ITER)])
     y_s = step_seconds(events, "SGD")
     if launches["bucket_apply"] != plan.n_exec * n_cards:
         raise AssertionError(f"{launches['bucket_apply']} bucket kernel "
@@ -959,7 +1013,8 @@ def phase_sharded_sweep(gfa_in, tmp, bench, cert, card_line):
         path_hashes_preserved=True)
     del pidx
 
-    p = PathSGDParams().derive_from_graph(bench)
+    p = replace(PathSGDParams().derive_from_graph(bench),
+                iter_max=SWEEP_MODE_ITER)
     L = shard_len(bench, SHARDS)
     plan = make_sharded_sweep_plan(bench, p, L)
     reset_launches()
@@ -1143,6 +1198,203 @@ def phase_distributed(cert, x_no_group, card_line):
                 os.environ[k] = v
 
 
+def phase_entry(card_line):
+    """``entry("cuda")``'s round on the card against the same round on
+    the CPU, and ``dryrun_multichip`` on ``SHARDS`` shards of the card."""
+    from gfasort_tpu_torch.entry import dryrun_multichip, entry
+
+    fn, args = entry("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    fn_cpu, args_cpu = entry("cpu")
+    ref = fn_cpu(*args_cpu)
+    torch.testing.assert_close(out.cpu(), ref, rtol=ENTRY_RTOL,
+                               atol=ENTRY_ATOL)
+    t0 = time.perf_counter()
+    summary = dryrun_multichip(SHARDS, "cuda")
+    say("entry", card_line, round_s=round_s, nodes=int(out.shape[0]),
+        max_abs_err_vs_cpu=float((out.cpu() - ref).abs().max()),
+        equal_to_cpu=bool(torch.equal(out.cpu(), ref)), rtol=ENTRY_RTOL,
+        atol=ENTRY_ATOL, dryrun_s=time.perf_counter() - t0, dryrun=summary)
+
+
+def y_step_parts(graph, params) -> dict:
+    """The 1D sweep ``Y`` step as a served job runs it (the runner cache
+    on), taken apart on the host clock: the path index, the runner's
+    cold build and its cache hit (the fingerprint), the initial state,
+    the run read back, the order and its application to ``graph``; and
+    the device bytes the cached runner keeps alive."""
+    from gfasort_tpu_torch.index import PathIndex
+    from gfasort_tpu_torch.ops import runner_cache
+    from gfasort_tpu_torch.ops.keys import key_data
+    from gfasort_tpu_torch.ops.sweep import build_sweep_runner
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+
+    secs = {}
+    old = os.environ.get("GFASORT_RUNNER_CACHE")
+    os.environ["GFASORT_RUNNER_CACHE"] = "1"
+    try:
+        t0 = time.perf_counter()
+        pidx = PathIndex.from_graph(graph)
+        lap("path_index_s", t0)
+        m0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        built = build_sweep_runner(pidx, params, device="cuda")
+        lap("build_s", t0)
+        device_bytes = torch.cuda.memory_allocated() - m0
+        t0 = time.perf_counter()
+        hit = build_sweep_runner(pidx, params, device="cuda")
+        lap("hit_s", t0)
+        if hit is not built:
+            raise AssertionError("the second build missed the runner cache")
+        run, arrays, make_state, _ = hit
+        t0 = time.perf_counter()
+        xs0, xn0 = make_state()
+        lap("state_s", t0)
+        t0 = time.perf_counter()
+        x = run(xs0, xn0, key_data(params.seed), *arrays).cpu().numpy()
+        lap("run_s", t0)
+        t0 = time.perf_counter()
+        order = (np.asarray(pidx.node_ids)[np.argsort(
+            x.astype(np.float64), kind="stable")] << 1).tolist()
+        lap("order_s", t0)
+        t0 = time.perf_counter()
+        graph.apply_ordering(order)
+        lap("apply_ordering_s", t0)
+        del built, hit, run, arrays, make_state
+        runner_cache._CACHE.clear()
+    finally:
+        if old is None:
+            os.environ.pop("GFASORT_RUNNER_CACHE")
+        else:
+            os.environ["GFASORT_RUNNER_CACHE"] = old
+    return {"cached_runner_device_bytes": device_bytes, **secs}
+
+
+# run in a fresh process by fresh_process_y_parts: the first-use costs
+# of a process, then the 1D `Y` step taken apart twice
+_FRESH_PROCESS = """
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+import_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+context_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+from gfasort_tpu_torch import kernels
+kernels.library()
+library_s = time.perf_counter() - t0
+from dataclasses import replace
+import chip_smoke
+from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
+from gfasort_tpu_torch.params import YgsParams
+g = load_gfa_numeric_fast(sys.argv[1])
+p = replace(YgsParams.from_graph(g).path_sgd, iter_max=int(sys.argv[2]))
+first = chip_smoke.y_step_parts(g, p)
+second = chip_smoke.y_step_parts(g, p)
+print(json.dumps({"import_torch_s": import_s, "cuda_context_s": context_s,
+                  "kernel_library_s": library_s, "first_y": first,
+                  "second_y": second}))
+"""
+
+
+def fresh_process_y_parts(gfa_in) -> dict:
+    """In a new process: the torch import, the CUDA context and the
+    kernel library's load, then ``y_step_parts`` twice on ``gfa_in``
+    (the second on the renumbered graph, a cold build in a warm
+    process): where a served job's first-use cost goes."""
+    out = subprocess.run(
+        [sys.executable, "-c", _FRESH_PROCESS, gfa_in, str(SERVER_ITER)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"the fresh-process Y parts failed:\n"
+                             f"{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def phase_server(gfa_in, tmp, card_line):
+    """``-p Y --engine sweep --iter-max SERVER_ITER`` twice through
+    ``--server`` from fresh clients (``tools/e2e_server_warm.py``): one
+    daemon pid, byte-identical outputs, both equal to the same job run
+    in-process (whose bucket-kernel launches are counted); then, in a
+    fresh process, its first-use costs and the ``Y`` step taken apart
+    twice, with the cached runner's device bytes."""
+    from gfasort_tpu_torch.tools.e2e_server_warm import serve_twice
+
+    job = ["-p", "Y", "--engine", "sweep", "--iter-max", str(SERVER_ITER),
+           "--device", "cuda"]
+    runs = serve_twice(gfa_in, tmp, job, os.path.join(tmp, "s.sock"),
+                       timeout=900)
+    if runs[0]["pid"] != runs[1]["pid"]:
+        raise AssertionError(f"two daemons served the jobs: {runs}")
+    served = [open(r["output"], "rb").read() for r in runs]
+    if served[0] != served[1]:
+        raise AssertionError("the two served outputs differ")
+    secs, events, launches, _ = cli_step(gfa_in, tmp, "served_ref", job)
+    with open(os.path.join(tmp, "served_ref.gfa"), "rb") as fh:
+        if fh.read() != served[0]:
+            raise AssertionError("the served output differs from the "
+                                 "in-process run's")
+    if launches["bucket_apply"] <= 0:
+        raise AssertionError("the in-process Y launched no bucket kernel")
+    fresh = fresh_process_y_parts(gfa_in)
+    say("server", card_line, iter_max=SERVER_ITER, pid=runs[0]["pid"],
+        served={r["run"]: {"client_wall_s": r["client_wall_s"],
+                           "served_wall_s": r["served_wall_s"],
+                           "y_step_s": r["step_walls_s"]["SGD"]}
+                for r in runs},
+        in_process_cli_s=secs, in_process_y_step_s=step_seconds(events, "SGD"),
+        outputs_identical=True, fresh_process=fresh, kernel_launches=launches)
+
+
+def phase_e2e(gfa_in, tmp, card_line):
+    """``sYgsuL`` as ``tools/e2e_chromosome.py`` runs it, in-process so
+    that the kernels' launches are counted: path hashes kept, the node
+    count not grown, both bucket kernels launched, the TSV finite."""
+    from gfasort_tpu_torch.tools.e2e_chromosome import job_argv
+
+    tsv = os.path.join(tmp, "e2e.tsv")
+    secs, events, launches, log = cli_step(
+        gfa_in, tmp, "e2e", job_argv(E2E_ITER, E2E_LAYOUT_ITER, tsv, "cuda"),
+        counts_kept=False)
+    for k in ("bucket_apply", "dense_apply_nd"):
+        if launches[k] <= 0:
+            raise AssertionError(f"sYgsuL launched no {k} kernel")
+    nodes_in = events[0]["nodes"]
+    nodes_out = next(e["nodes"] for e in events if e["event"] == "2D layout")
+    check_tsv(tsv, nodes_out)
+    say("e2e", card_line, pipeline="sYgsuL", iter_max=E2E_ITER,
+        layout_iter=E2E_LAYOUT_ITER, nodes_in=nodes_in, nodes_out=nodes_out,
+        cli_s=secs, stress=layout_stress(log),
+        steps_s={e["event"] + f"#{e['step']}": e["seconds"] for e in events},
+        kernel_launches=launches, path_hashes_preserved=True)
+
+
+def phase_scaling(bench, card_line):
+    """``tools/bench_scaling.py`` on 1, 2 and ``SHARDS`` shards of the
+    card at its strong-scaling workload (the bench index): one row per
+    mesh size.  The shards share one card, so this runs the code; it
+    does not measure scaling."""
+    from gfasort_tpu_torch.tools.bench_scaling import run_scaling
+
+    rows = run_scaling(SHARDS, device="cuda", workload=lambda nd: bench,
+                       reps=SCALING_REPS, part_reps=SCALING_REPS,
+                       emit=lambda line: None)
+    for row in rows:
+        say("scaling", card_line,
+            note="shards of one card: exercises the code, not a scaling "
+                 "measurement", **row)
+
+
 def kernel_entry(name, source, replaces, launches, cases, main_case,
                  library_ms=None, note=None):
     """One entry of the kernels line: the path's launch count and the
@@ -1213,6 +1465,7 @@ def main() -> int:
                               bench.step_pos.astype(np.float32), card_line)
     sres, sweep_launches = phase_sweep_apply(bench_plan, bench, card_line)
     probe = phase_shift_probe(card_line)
+    phase_entry(card_line)
 
     n, paths, steps = BENCH_SHAPE
     with tempfile.TemporaryDirectory() as tmp:
@@ -1225,6 +1478,8 @@ def main() -> int:
         launches_nd = phase_layout(gfa_in, tmp, card_line)
         phase_layout_parts(gfa_in, card_line)
         phase_batched_cli(gfa_in, tmp, card_line)
+        phase_server(gfa_in, tmp, card_line)
+        phase_e2e(gfa_in, tmp, card_line)
         cert = phase_quality(card_line)
         phase_sweep_mode("sweep_f64", bench, cert, card_line, "float64",
                          "hash")
@@ -1234,6 +1489,7 @@ def main() -> int:
         phase_sharded_layout(gfa_in, tmp, card_line)
         phase_sharded_batched(gfa_in, tmp, cert, card_line)
         phase_distributed(cert, x_sharded, card_line)
+        phase_scaling(bench, card_line)
         del bench
         x_batched = phase_batched(cert, card_line)
         phase_checkpoint(cert, x_batched, tmp, card_line)

@@ -12,7 +12,27 @@ hand in CUDA C++ for Hopper (``csrc/bucket_apply.cu``,
 with its checkpointed form (:mod:`.checkpoint`), and the multi-device
 engines over a mesh of shards (:mod:`.parallel`).  It imports ``torch``
 and never ``jax``.  Entry points:
-:func:`.pipeline.run_pipeline` and ``python -m gfasort_tpu_torch``.
+:func:`.pipeline.run_pipeline`, ``python -m gfasort_tpu_torch`` (with
+``--server``, the warm process of :mod:`.server`) and :mod:`.entry`.
+
+The names below are the JAX package's top-level names, from the port's
+host copies; none of them imports ``torch``, so ``import
+gfasort_tpu_torch`` stays cheap for the ``--server`` client.
 """
 
+from .graph import BiPath, BidirectedGraph
+from .index import PathIndex
+from .io.layout_tsv import Layout
+from .params import LayoutSGDParams, PathSGDParams, YgsParams
+
 __version__ = "0.1.0"
+
+__all__ = [
+    "BiPath",
+    "BidirectedGraph",
+    "PathIndex",
+    "Layout",
+    "PathSGDParams",
+    "LayoutSGDParams",
+    "YgsParams",
+]

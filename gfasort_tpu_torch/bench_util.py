@@ -1,8 +1,8 @@
 """Workloads and quality measures of the port's smoke run and GPU tests.
 
-``synthetic_path_index`` and ``rank_quality`` are copied unchanged from
-``gfasort_tpu/bench_util.py``; ``layout_quality_vs_oracle`` is that
-module's layout certificate with the port's sweep engine on ``device``;
+``synthetic_path_index``, ``rank_quality`` and ``bench_params`` are
+copied unchanged from ``gfasort_tpu/bench_util.py``;
+``layout_quality_vs_oracle`` is that module's layout certificate with the port's sweep engine on ``device``;
 ``cuda_ms`` times device work with CUDA events; ``BENCH_SHAPE``,
 ``contract_choices`` and ``bench_layout_coords`` make the bucket kernels'
 inputs of ``chip_smoke.py`` and ``tools/kernel_ab.py``, ``fused_cases`` the
@@ -17,8 +17,10 @@ from typing import Optional
 import numpy as np
 
 from .index import PathIndex
+from .params import PathSGDParams
 
-__all__ = ["synthetic_path_index", "rank_quality", "layout_quality_vs_oracle",
+__all__ = ["synthetic_path_index", "rank_quality", "bench_params",
+           "layout_quality_vs_oracle",
            "cuda_ms", "BENCH_SHAPE", "contract_choices", "bench_layout_coords",
            "fused_cases"]
 
@@ -94,6 +96,20 @@ def rank_quality(order_a: np.ndarray, order_b: np.ndarray) -> dict:
         "rank_mae_frac": float(disp.mean()) / max(n, 1),
         "spearman": float((sa * sb).mean()),
     }
+
+
+def bench_params(pidx: PathIndex, batch: int, rounds: int) -> PathSGDParams:
+    """Params that make the production engine run exactly ``rounds``
+    rounds of width ``batch`` (iter_max = rounds-1, mtu = batch)."""
+    p = PathSGDParams().derive_from_graph(pidx)
+    return replace(
+        p,
+        iter_max=rounds - 1,
+        min_term_updates=batch,
+        batch=batch,
+        dtype="float32",
+        pow_mode="fast",
+    )
 
 
 def layout_quality_vs_oracle(

@@ -7,6 +7,7 @@ Usage::
         [--layout-iter 30]
         [--engine auto|exact|sweep|batched|sharded|sweep-sharded] [--seed N]
         [--batch B] [--trace-out steps.jsonl] [--device cuda] [--distributed]
+        [--server]
 
 The flags are those of ``gfasort_tpu.cli`` that the port serves.  The
 device engine runs on ``--device`` (default ``cuda``); with no CUDA
@@ -16,17 +17,18 @@ take one shard per visible card (one shard with ``--device cpu``);
 ``GFASORT_COORDINATOR``, ``GFASORT_NUM_PROCESSES`` and
 ``GFASORT_PROCESS_ID`` variables describe (NCCL on cuda, gloo on the
 CPU), and the sharded engines then take one shard per process.
+``--server`` routes the job to the warm process of
+:mod:`gfasort_tpu_torch.server` (spawned on first use); the routing
+happens before anything that imports ``torch``, so the client stays
+light.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
-
-from .io import gfa as gfa_io
-from .io.fast_gfa import load_gfa_numeric_fast
-from .pipeline import run_pipeline, validate_pipeline
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,11 +75,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--distributed", action="store_true",
                    help="Join a multi-process run (GFASORT_COORDINATOR, "
                         "GFASORT_NUM_PROCESSES, GFASORT_PROCESS_ID)")
+    p.add_argument("--server", action="store_true",
+                   help="Route this invocation through the warm-process "
+                        "server (spawned on first use, reused afterwards; "
+                        "the job runs with the server's environment) - "
+                        "see gfasort_tpu_torch/server.py")
     return p
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    if "--server" in argv and not os.environ.get("GFASORT_IN_SERVER"):
+        # route to (or spawn) the warm process; the job re-enters this
+        # function there WITHOUT the flag
+        from .server import run_via_server
+
+        return run_via_server([a for a in argv if a != "--server"])
     args = build_parser().parse_args(argv)
+    from .io import gfa as gfa_io
+    from .io.fast_gfa import load_gfa_numeric_fast
+    from .pipeline import run_pipeline, validate_pipeline
+
     if args.distributed:
         from .parallel.mesh import init_distributed
 

@@ -30,6 +30,7 @@ from ..device import resolve_device
 from ..graph import BidirectedGraph
 from ..index import PathIndex
 from ..params import PathSGDParams
+from . import runner_cache
 from .keys import key_data, sweep_key_table
 from .node_sum import JAX_ROW_RUN, build_gather_consensus
 from .sweep_common import (SamplerConsts, pack_choices_words, sample_blocks,
@@ -126,8 +127,18 @@ def build_sweep_runner(
     schedule and returns the final node positions [N] on the device;
     ``base_key`` is the u32 [2] key data (``ops.keys.key_data(seed)``).
     The environment knobs come from ``ops.env.sweep_knobs``, read once
-    by the plan."""
+    by the plan.  Under the warm-process server (GFASORT_RUNNER_CACHE=1)
+    the whole built runner is memoized (:mod:`.runner_cache`)."""
     dev = resolve_device(device)
+    ck = None
+    if runner_cache.enabled():
+        ck = ("sweep1d", runner_cache.fingerprint_pidx(pidx),
+              runner_cache.params_key(params), runner_cache.env_key(),
+              per_octave, consensus_every, active_frac, str(rotate),
+              dense_upto, proposals, str(dev))
+        hit = runner_cache.get(ck)
+        if hit is not None:
+            return hit
     plan = make_sweep_plan(pidx, params, per_octave, consensus_every,
                            active_frac, rotate, dense_upto, proposals)
     npd = np.dtype(plan.dtype).type
@@ -157,7 +168,10 @@ def build_sweep_runner(
         return initial_state(pidx, x0, dev, npd)
 
     info = dict(plan.info(), consensus="gather", consensus_coverage=None)
-    return run, arrays, make_state, info
+    built = (run, arrays, make_state, info)
+    if ck is not None:
+        runner_cache.put(ck, built)
+    return built
 
 
 def path_linear_sgd_sweep(

@@ -30,6 +30,7 @@ from ..graph import BidirectedGraph
 from ..index import PathIndex
 from ..io.layout_tsv import Layout
 from ..params import LayoutSGDParams
+from . import runner_cache
 from .keys import key_data, sweep_key_table
 from .node_sum import build_gather_consensus
 from .sweep_common import (SamplerConsts, pack_choices_words, sample_blocks,
@@ -142,8 +143,19 @@ def build_sweep_nd_runner(
     (``ops.keys.key_data(seed)``); ``make_state(init_node_coords)`` maps
     [2N, D] node-end coordinates to ``(cs0 [2D, S], cs_node0 [2D, N])``.
     Knobs left as None take the shape-aware defaults of
-    ``auto_sweep_config(layout=True)``."""
+    ``auto_sweep_config(layout=True)``.  Under the warm-process server
+    (GFASORT_RUNNER_CACHE=1) the whole built runner is memoized
+    (:mod:`.runner_cache`)."""
     dev = resolve_device(device)
+    ck = None
+    if runner_cache.enabled():
+        ck = ("sweepnd", runner_cache.fingerprint_pidx(pidx),
+              runner_cache.params_key(params), runner_cache.env_key(),
+              int(params.dimensions), per_octave, consensus_every,
+              active_frac, str(rotate), dense_upto, proposals, str(dev))
+        hit = runner_cache.get(ck)
+        if hit is not None:
+            return hit
     plan = make_layout_plan(pidx, params, per_octave, consensus_every,
                             active_frac, rotate, dense_upto, proposals)
     npd = np.dtype(plan.dtype).type
@@ -172,7 +184,10 @@ def build_sweep_nd_runner(
     def make_state(init_node_coords: np.ndarray):
         return layout_state(pidx, init_node_coords, plan.dims, dev, npd)
 
-    return run, arrays, make_state, plan.layout_info()
+    built = (run, arrays, make_state, plan.layout_info())
+    if ck is not None:
+        runner_cache.put(ck, built)
+    return built
 
 
 def path_linear_sgd_layout_sweep(

@@ -604,3 +604,34 @@ def test_sharded_batched_on_cuda_equals_cpu_mesh(cuda, n_shards):
     x_gpu = path_linear_sgd_sharded(None, p, default_mesh(n_shards, "cuda"), pidx)
     x_cpu = path_linear_sgd_sharded(None, p, default_mesh(n_shards, "cpu"), pidx)
     np.testing.assert_array_equal(x_gpu, x_cpu)
+
+
+def test_runner_cache_keeps_cpu_and_cuda_runners_apart(cuda, monkeypatch):
+    """The resolved device is part of the runner cache's key: a CPU
+    runner and a CUDA runner never answer for each other."""
+    from collections import OrderedDict
+
+    from gfasort_tpu_torch.ops import runner_cache
+    from gfasort_tpu_torch.ops.sweep import build_sweep_runner
+
+    monkeypatch.setattr(runner_cache, "_CACHE", OrderedDict())
+    monkeypatch.setenv("GFASORT_RUNNER_CACHE", "1")
+    pidx = synthetic_path_index(600, 3, 800, seed=2)
+    p = replace(PathSGDParams().derive_from_graph(pidx), iter_max=3)
+    on_cpu = build_sweep_runner(pidx, p, device="cpu")
+    on_card = build_sweep_runner(pidx, p, device="cuda")
+    assert on_card is not on_cpu
+    assert on_card[1][0].is_cuda and not on_cpu[1][0].is_cuda
+    assert build_sweep_runner(pidx, p, device=cuda) is on_card
+    assert build_sweep_runner(pidx, p, device="cpu") is on_cpu
+
+
+def test_entry_round_on_cuda_close_to_cpu(cuda):
+    """``entry("cuda")``'s round against the same round on the CPU
+    (the sampler's f32 ``exp`` / ``log`` may differ in the last place)."""
+    from gfasort_tpu_torch.entry import entry
+
+    fn, args = entry("cuda")
+    fn_cpu, args_cpu = entry("cpu")
+    torch.testing.assert_close(fn(*args).cpu(), fn_cpu(*args_cpu),
+                               rtol=1e-5, atol=1e-4)

@@ -256,9 +256,16 @@ def test_sweep_policy_matches_jax(fn):
 
 
 @pytest.mark.parametrize("what", ["synthetic_path_index", "rank_quality",
-                                  "tracer"])
+                                  "bench_params", "tracer"])
 def test_bench_util_and_trace_match_jax(what):
-    if what == "synthetic_path_index":
+    if what == "bench_params":
+        t_p = t_bench.bench_params(
+            t_bench.synthetic_path_index(700, 3, 900, seed=4), 64, 5)
+        j_p = j_bench.bench_params(
+            j_bench.synthetic_path_index(700, 3, 900, seed=4), 64, 5)
+        assert vars(t_p) == vars(j_p)
+        assert (t_p.iter_max, t_p.min_term_updates, t_p.batch) == (4, 64, 64)
+    elif what == "synthetic_path_index":
         _assert_pidx_equal(t_bench.synthetic_path_index(700, 3, 900, seed=4),
                            j_bench.synthetic_path_index(700, 3, 900, seed=4))
     elif what == "rank_quality":

@@ -50,7 +50,7 @@ def test_auto_engine_small_graph_matches_jax_pipeline():
 
 
 @pytest.mark.parametrize("engine", ["batched", "sharded", "sweep-sharded"])
-def test_unported_engines_raise(engine):
+def test_every_engine_runs_y_and_unknown_names_raise(engine):
     """Every engine name is ported now: the batched and both multi-device
     engines run ``Y`` on the CPU (one shard by default) and keep every
     path; an unknown name still raises."""
@@ -62,7 +62,7 @@ def test_unported_engines_raise(engine):
         run_pipeline(g, "Y", iter_max=2, engine=engine + "-x", device="cpu")
 
 
-def test_layout_exact_works_and_device_layout_raises():
+def test_every_layout_engine_runs_on_the_cpu():
     """The engines of ``L`` run: the oracle, and the device engines (nD
     sweep, batched, and the sharded layout that both sharded names run)
     here on the CPU; none changes the graph."""
@@ -132,8 +132,8 @@ def test_sweep_on_cuda_without_cuda_raises(tmp_path):
 def test_port_never_imports_jax():
     """Every module of the port and the smoke script, then the 1D sweep
     (f32 and f64), ``sYgsL``, the batched engines, the multi-device
-    engines (``parallel/``), the checkpointed runner and the native
-    oracle on the CPU: neither ``jax`` nor any module of the JAX package
+    engines (``parallel/``), the checkpointed runner, the native oracle,
+    the ``entry`` round and a runner-cache hit on the CPU: neither ``jax`` nor any module of the JAX package
     ``gfasort_tpu`` is ever imported."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -176,6 +176,13 @@ def test_port_never_imports_jax():
         with tempfile.TemporaryDirectory() as d:
             path_linear_sgd_checkpointed(None, p, os.path.join(d, "c"), pidx,
                                          segment_rounds=2, device="cpu")
+        # the entry round and a runner-cache hit
+        from gfasort_tpu_torch.entry import entry
+        fn, args = entry("cpu")
+        assert fn(*args).shape == (64,)
+        os.environ["GFASORT_RUNNER_CACHE"] = "1"
+        built = sweep.build_sweep_runner(pidx, p, device="cpu")
+        assert sweep.build_sweep_runner(pidx, p, device="cpu") is built
         bad = sorted(k for k in sys.modules if k == "jax"
                      or k.startswith("jax.") or k == "gfasort_tpu"
                      or k.startswith("gfasort_tpu."))
