@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases (they run in the order 1-5, 19, 6-8, 13's CLI run, 20-21, 9,
-11-12, 15-18, 22, 13-14, 10); any failed check raises and the script
-exits non-zero:
+11-12, 15-18, 22, 13-14, 10, 23); any failed check raises and the script
+exits non-zero.  Every phase line carries ``t_s``, the script's seconds
+so far:
 
 1. build      — compile the hand-written CUDA kernels from ``csrc/``, one
                 ``nvcc`` per source, all at once (timed).
@@ -132,6 +133,17 @@ exits non-zero:
                 card at its strong-scaling workload (the bench index), one
                 row per mesh size.  The shards share one card: this runs
                 the code, it does not measure scaling.
+23. bench     — ``ops.sweep.build_applied_counter`` (through
+                ``bench_util.measure_applied_frac``, 24 rounds) on the card
+                and on the CPU at the 100k-node certificate shape: the
+                same integers; then the bench twin
+                (``python -m gfasort_tpu_torch.tools.bench``) in a
+                subprocess at BENCH_ENV (24 rounds, cut from 96), its
+                kernel counters from 0: every stdout line parses, the last
+                is complete with every certificate passing, a positive
+                headline and a roofline, and both bucket kernels
+                launched; the headline, vs_baseline, the applied fraction
+                and the roofline fractions printed.
 
 Then the ``nvidia-smi`` card line, one JSON line describing every kernel,
 and ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -156,7 +168,8 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from gfasort_tpu_torch.bench_util import (BENCH_SHAPE, bench_layout_coords,
+from gfasort_tpu_torch.bench_util import (BENCH_SHAPE, F32_OPS_S, HBM_BYTES_S,
+                                          bench_layout_coords,
                                           contract_choices, cuda_ms)
 
 CERT = dict(n_nodes=100_000, n_paths=4, steps_per_path=100_000, seed=7,
@@ -190,10 +203,11 @@ SERVER_ITER = 30
 E2E_ITER, E2E_LAYOUT_ITER = 30, 10
 # timed runs per mesh size in the scaling phase
 SCALING_REPS = 1
-# published H100 SXM peaks: HBM bytes/s and f32 operations/s (no tensor
-# cores)
-HBM_BYTES_S = 3.35e12
-F32_OPS_S = 67e12
+# the bench twin's protocol in the bench phase, cut through bench.py's
+# own knobs to keep the script's time (24 rounds instead of 96; the
+# certificate shapes at their defaults)
+BENCH_ENV = dict(BENCH_ROUNDS="24")
+BENCH_TIMEOUT_S = 420
 
 
 def bound_ms(S: int, words_in: int, words_out: int, f32_ops_per_step: int):
@@ -242,8 +256,13 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_T0 = time.perf_counter()
+
+
 def say(phase: str, card_line: str | None = None, **nums) -> None:
-    rec = {"phase": phase, **nums}
+    """One JSON line per result, with the script's seconds so far."""
+    rec = {"phase": phase, **nums,
+           "t_s": round(time.perf_counter() - _T0, 1)}
     if card_line is not None:
         rec["card"] = card_line
     print(json.dumps(rec), flush=True)
@@ -435,11 +454,29 @@ def phase_shift_probe(card_line):
 
 
 @functools.lru_cache(maxsize=None)
-def gfa_truth(gfa_in):
-    """(path hashes, (nodes, edges)) of the GFA at ``gfa_in``."""
+def input_graph(gfa_in):
+    """The GFA at ``gfa_in``, loaded once: the phases only read it (a
+    1M-node load takes ~10 s)."""
     from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
 
-    g = load_gfa_numeric_fast(gfa_in)
+    return load_gfa_numeric_fast(gfa_in)
+
+
+@functools.lru_cache(maxsize=None)
+def input_index(gfa_in):
+    """(PathIndex, the 1D params ``YgsParams.from_graph`` derives) of
+    the GFA at ``gfa_in``, built once."""
+    from gfasort_tpu_torch.index import PathIndex
+    from gfasort_tpu_torch.params import YgsParams
+
+    g = input_graph(gfa_in)
+    return PathIndex.from_graph(g), YgsParams.from_graph(g).path_sgd
+
+
+@functools.lru_cache(maxsize=None)
+def gfa_truth(gfa_in):
+    """(path hashes, (nodes, edges)) of the GFA at ``gfa_in``."""
+    g = input_graph(gfa_in)
     return g.compute_all_path_hashes(), (g.node_count(), len(g.edges))
 
 
@@ -493,16 +530,12 @@ def layout_stress(log: str) -> float:
 
 
 def phase_main(gfa_in, tmp, card_line):
-    from gfasort_tpu_torch.index import PathIndex
-    from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
     from gfasort_tpu_torch.ops.sweep import path_linear_sgd_sweep
     from gfasort_tpu_torch.ops.sweep_plan import make_sweep_plan
-    from gfasort_tpu_torch.params import YgsParams
 
-    g0 = load_gfa_numeric_fast(gfa_in)
-    nodes0, edges0 = g0.node_count(), len(g0.edges)
-    pidx = PathIndex.from_graph(g0)
-    params = replace(YgsParams.from_graph(g0).path_sgd, iter_max=100)
+    _, (nodes0, edges0) = gfa_truth(gfa_in)
+    pidx, p = input_index(gfa_in)
+    params = replace(p, iter_max=100)
     plan = make_sweep_plan(pidx, params)
 
     t_cli, events, launches, _ = cli_step(gfa_in, tmp, "sorted",
@@ -514,7 +547,7 @@ def phase_main(gfa_in, tmp, card_line):
     # positions of the same engine on the same graph, read back
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    x = path_linear_sgd_sweep(g0, params, pidx, device="cuda")
+    x = path_linear_sgd_sweep(None, params, pidx, device="cuda")
     t_engine = time.perf_counter() - t0
     if x.shape != (nodes0,) or not np.isfinite(x).all():
         raise AssertionError("sweep positions are not finite [N]")
@@ -546,17 +579,14 @@ def check_tsv(tsv, nodes: int) -> None:
 
 def phase_layout(gfa_in, tmp, card_line):
     """``-p L --dimensions 2`` through the CLI on the bench GFA."""
-    from gfasort_tpu_torch.index import PathIndex
-    from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
     from gfasort_tpu_torch.ops.sweep_plan import make_layout_plan
     from gfasort_tpu_torch.params import LayoutSGDParams
 
     tsv = os.path.join(tmp, "layout.tsv")
-    pidx = PathIndex.from_graph(load_gfa_numeric_fast(gfa_in))
+    pidx, _ = input_index(gfa_in)
     nodes0 = pidx.num_nodes
     lp = replace(LayoutSGDParams().derive_from_graph(pidx, 2), iter_max=30)
     plan = make_layout_plan(pidx, lp)
-    del pidx
 
     t_cli, events, launches, log = cli_step(
         gfa_in, tmp, "layout",
@@ -585,7 +615,6 @@ def phase_layout_parts(gfa_in, card_line, n_sweeps: int = 12):
 
     from gfasort_tpu_torch.convert import layout_state, layout_static_arrays
     from gfasort_tpu_torch.index import PathIndex
-    from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
     from gfasort_tpu_torch.ops.exact import layout_initial_coords
     from gfasort_tpu_torch.ops.keys import key_data, sweep_key_table
     from gfasort_tpu_torch.ops.node_sum import build_gather_consensus
@@ -599,11 +628,10 @@ def phase_layout_parts(gfa_in, card_line, n_sweeps: int = 12):
 
     dev = torch.device("cuda")
     host = {}
-    g = load_gfa_numeric_fast(gfa_in)
+    g = input_graph(gfa_in)
     t0 = time.perf_counter()
     pidx = PathIndex.from_graph(g)
     host["path_index_s"] = time.perf_counter() - t0
-    del g
     lp = replace(LayoutSGDParams().derive_from_graph(pidx, 2), iter_max=30)
     t0 = time.perf_counter()
     init = layout_initial_coords(pidx, 2, lp.seed)
@@ -819,20 +847,14 @@ def phase_batched_cli(gfa_in, tmp, card_line):
     """``-p Y --engine batched`` on the bench GFA through the CLI at its
     default schedule; every kernel counter read from 0 around it (the
     batched path runs no hand-written kernel)."""
-    from gfasort_tpu_torch.index import PathIndex
-    from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
     from gfasort_tpu_torch.ops.sgd import (build_schedule, effective_batch,
                                            path_linear_sgd_batched)
-    from gfasort_tpu_torch.params import YgsParams
 
-    g0 = load_gfa_numeric_fast(gfa_in)
-    nodes0 = g0.node_count()
-    pidx = PathIndex.from_graph(g0)
-    params = replace(YgsParams.from_graph(g0).path_sgd,
-                     iter_max=BATCHED_CLI_ITER)
+    _, (nodes0, _) = gfa_truth(gfa_in)
+    pidx, p = input_index(gfa_in)
+    params = replace(p, iter_max=BATCHED_CLI_ITER)
     B = effective_batch(params)
     n_rounds = build_schedule(params, B)[3]
-    del g0
 
     t_cli, events, launches, _ = cli_step(
         gfa_in, tmp, "batched",
@@ -982,18 +1004,13 @@ def phase_sharded_sweep(gfa_in, tmp, bench, cert, card_line):
     """The sharded 1D sweep: the CLI on a one-shard card mesh, a direct
     call on ``SHARDS`` shards of the card, and the certificate at 1 and
     ``SHARDS`` shards.  Returns the one-shard certificate positions."""
-    from gfasort_tpu_torch.index import PathIndex
-    from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
     from gfasort_tpu_torch.ops.sweep_plan import make_sharded_sweep_plan
     from gfasort_tpu_torch.parallel import (default_mesh,
                                             path_linear_sgd_sweep_sharded)
-    from gfasort_tpu_torch.params import PathSGDParams, YgsParams
+    from gfasort_tpu_torch.params import PathSGDParams
 
-    g0 = load_gfa_numeric_fast(gfa_in)
-    pidx = PathIndex.from_graph(g0)
-    params = replace(YgsParams.from_graph(g0).path_sgd,
-                     iter_max=SWEEP_MODE_ITER)
-    del g0
+    pidx, p = input_index(gfa_in)
+    params = replace(p, iter_max=SWEEP_MODE_ITER)
     n_cards = default_mesh(device="cuda").size
     plan = make_sharded_sweep_plan(pidx, params, shard_len(pidx, n_cards))
     secs, events, launches, _ = cli_step(
@@ -1069,13 +1086,11 @@ def phase_sharded_layout(gfa_in, tmp, card_line):
     and the sharded layout certificate on ``SHARDS`` shards of the card,
     2D and 3D."""
     from gfasort_tpu_torch.bench_util import layout_quality_vs_oracle
-    from gfasort_tpu_torch.index import PathIndex
-    from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
     from gfasort_tpu_torch.ops.sweep_plan import make_sharded_layout_plan
     from gfasort_tpu_torch.parallel import default_mesh
     from gfasort_tpu_torch.params import LayoutSGDParams
 
-    pidx = PathIndex.from_graph(load_gfa_numeric_fast(gfa_in))
+    pidx, _ = input_index(gfa_in)
     lp = replace(LayoutSGDParams().derive_from_graph(pidx, 2), iter_max=30)
     n_cards = default_mesh(device="cuda").size
     plan = make_sharded_layout_plan(pidx, lp, shard_len(pidx, n_cards))
@@ -1114,16 +1129,10 @@ def phase_sharded_layout(gfa_in, tmp, card_line):
 def phase_sharded_batched(gfa_in, tmp, cert, card_line):
     """``-p Y --engine sharded`` through the CLI, and the sharded batched
     certificate at 1 and ``SHARDS`` shards of the card."""
-    from gfasort_tpu_torch.index import PathIndex
-    from gfasort_tpu_torch.io.fast_gfa import load_gfa_numeric_fast
     from gfasort_tpu_torch.ops.sgd import build_schedule, effective_batch
     from gfasort_tpu_torch.parallel import default_mesh, path_linear_sgd_sharded
-    from gfasort_tpu_torch.params import YgsParams
 
-    g0 = load_gfa_numeric_fast(gfa_in)
-    params = replace(YgsParams.from_graph(g0).path_sgd,
-                     iter_max=BATCHED_CLI_ITER)
-    del g0
+    params = replace(input_index(gfa_in)[1], iter_max=BATCHED_CLI_ITER)
     n_cards = default_mesh(device="cuda").size
     b_local = -(-effective_batch(params) // n_cards)
     n_rounds = build_schedule(params, b_local * n_cards)[3]
@@ -1395,6 +1404,84 @@ def phase_scaling(bench, card_line):
                  "measurement", **row)
 
 
+# run in a fresh process by phase_bench: the bench twin as
+# ``python -m gfasort_tpu_torch.tools.bench --device cuda`` runs it, with
+# every kernel counter from 0, then the counts on stderr
+_BENCH_PROCESS = """
+import json, runpy, sys
+import chip_smoke
+sys.argv = ["bench", "--device", "cuda"]
+chip_smoke.reset_launches()
+try:
+    runpy.run_module("gfasort_tpu_torch.tools.bench", run_name="__main__")
+    rc = 0
+except SystemExit as e:
+    rc = e.code
+print("LAUNCHES " + json.dumps(chip_smoke.read_launches()), file=sys.stderr,
+      flush=True)
+sys.exit(rc)
+"""
+
+# the bench twin's certificates, each with its "ok"
+BENCH_CERTS = ("quality", "cli_default", "quality_mode_cert", "nd_layout",
+               "nd_layout_3d", "quality_full_schedule")
+
+
+def phase_bench(card_line):
+    """The applied-update counter on the card against the CPU's at the
+    100k-node certificate shape, then the bench twin in a subprocess at
+    ``BENCH_ENV``: every stdout line parses, the last is complete, every
+    certificate passes, the headline is positive and the roofline is
+    there; both bucket kernels launched in the twin's run."""
+    from gfasort_tpu_torch.bench_util import (measure_applied_frac,
+                                              synthetic_path_index)
+
+    pidx = synthetic_path_index(CERT["n_nodes"], CERT["n_paths"],
+                                CERT["steps_per_path"], seed=CERT["seed"])
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        counts[dev] = measure_applied_frac(pidx, rounds=24, device=dev)
+        counts[dev + "_s"] = time.perf_counter() - t0
+    if counts["cuda"] != counts["cpu"]:
+        raise AssertionError(f"the applied-update counter differs: {counts}")
+    say("bench", card_line, part="counter", nodes=CERT["n_nodes"],
+        steps=pidx.total_steps, counter=counts["cuda"],
+        cuda_s=counts["cuda_s"], cpu_s=counts["cpu_s"], equals_cpu=True)
+    del pidx
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", _BENCH_PROCESS],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, **BENCH_ENV), capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"the bench twin exited {out.returncode}:\n"
+                             f"{out.stderr[-4000:]}")
+    lines = [json.loads(line) for line in out.stdout.splitlines()]
+    last = lines[-1]
+    bad = [k for k in BENCH_CERTS if not (last[k] or {}).get("ok")]
+    if last["partial"] or bad or not last["value"] > 0 or not last["roofline"]:
+        raise AssertionError(f"the bench twin's result failed {bad}: {last}")
+    tag = [line for line in out.stderr.splitlines()
+           if line.startswith("LAUNCHES ")]
+    launches = json.loads(tag[-1].split(" ", 1)[1])
+    for k in ("bucket_apply", "dense_apply_nd"):
+        if launches[k] <= 0:
+            raise AssertionError(f"the bench twin launched no {k} kernel")
+    roof = last["roofline"]
+    say("bench", card_line, part="twin", knobs=BENCH_ENV, wall_s=secs,
+        value=last["value"], vs_baseline=last["vs_baseline"],
+        vs_baseline_mt=last["vs_baseline_mt"],
+        applied_frac_exact=roof["applied_frac_exact"],
+        achieved_bw_frac=roof["achieved_bw_frac"],
+        vpu_frac=roof["vpu_frac"], binding=roof["binding"],
+        consensus_ms=roof["consensus_ms"], lines=len(lines),
+        kernel_launches=launches, result=last)
+
+
 def kernel_entry(name, source, replaces, launches, cases, main_case,
                  library_ms=None, note=None):
     """One entry of the kernels line: the path's launch count and the
@@ -1494,6 +1581,7 @@ def main() -> int:
         x_batched = phase_batched(cert, card_line)
         phase_checkpoint(cert, x_batched, tmp, card_line)
     phase_quality_nd(card_line)
+    phase_bench(card_line)
 
     bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
                  or k == "gfasort_tpu" or k.startswith("gfasort_tpu."))

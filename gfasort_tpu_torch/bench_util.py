@@ -1,16 +1,27 @@
-"""Workloads and quality measures of the port's smoke run and GPU tests.
+"""Workloads, timed runs and quality measures of the port's bench, smoke
+run and GPU tests.
 
-``synthetic_path_index``, ``rank_quality`` and ``bench_params`` are
-copied unchanged from ``gfasort_tpu/bench_util.py``;
-``layout_quality_vs_oracle`` is that module's layout certificate with the port's sweep engine on ``device``;
-``cuda_ms`` times device work with CUDA events; ``BENCH_SHAPE``,
-``contract_choices`` and ``bench_layout_coords`` make the bucket kernels'
-inputs of ``chip_smoke.py`` and ``tools/kernel_ab.py``, ``fused_cases`` the
-fused sweep apply's.
+Counterpart of ``gfasort_tpu/bench_util.py``, with an explicit
+``device`` on every function that runs an engine (default ``"cuda"``).
+``synthetic_path_index``, ``shuffled_path_index``, ``rank_quality`` and
+``bench_params`` are copies.  The measurement functions run the port's
+engines: ``bench_sweep_1d``, ``bench_sweep_nd`` and ``bench_batched_1d``
+time whole runs from one device synchronisation to the next, the first
+run reported apart as ``warmup_s``; ``measure_applied_frac`` replays the
+sampler through ``ops.sweep.build_applied_counter``; ``roofline_model``
+holds a measured rate against the H100 peaks (``HBM_BYTES_S``,
+``F32_OPS_S``); ``bench_native_1d`` and ``bench_native_1d_mt`` time the
+C++ oracle's loop on the host; ``sweep_quality_vs_oracle`` and
+``layout_quality_vs_oracle`` certify the sweep engines against the C++
+oracle.  ``gather_consensus_ms`` and ``cuda_ms`` time device work;
+``BENCH_SHAPE``, ``contract_choices`` and ``bench_layout_coords`` make
+the bucket kernels' inputs of ``chip_smoke.py`` and
+``tools/kernel_ab.py``, ``fused_cases`` the fused sweep apply's.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import replace
 from typing import Optional
 
@@ -19,13 +30,22 @@ import numpy as np
 from .index import PathIndex
 from .params import PathSGDParams
 
-__all__ = ["synthetic_path_index", "rank_quality", "bench_params",
-           "layout_quality_vs_oracle",
-           "cuda_ms", "BENCH_SHAPE", "contract_choices", "bench_layout_coords",
-           "fused_cases"]
+__all__ = ["synthetic_path_index", "shuffled_path_index", "rank_quality",
+           "bench_params", "bench_batched_1d", "bench_sweep_1d",
+           "bench_sweep_nd", "HBM_BYTES_S", "F32_OPS_S", "roofline_model",
+           "measure_applied_frac", "bench_native_1d", "bench_native_1d_mt",
+           "sweep_quality_vs_oracle", "layout_quality_vs_oracle",
+           "gather_consensus_ms", "cuda_ms", "BENCH_SHAPE",
+           "contract_choices", "bench_layout_coords", "fused_cases"]
 
 # the bench-shape graph: nodes, paths, steps per path (bench.py:50-52)
 BENCH_SHAPE = (1_000_000, 16, 250_000)
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates, at
+# the 700 W power limit): HBM bytes/s and f32 operations/s outside the
+# tensor cores.  ``roofline_model`` and ``chip_smoke.bound_ms`` read them.
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
 
 
 def synthetic_path_index(
@@ -80,6 +100,42 @@ def synthetic_path_index(
     )
 
 
+def shuffled_path_index(
+    n_nodes: int = 1_000_000,
+    n_paths: int = 16,
+    steps_per_path: int = 250_000,
+    seed: int = 0,
+) -> PathIndex:
+    """Adversarial-locality variant of :func:`synthetic_path_index`:
+    node identities are randomly permuted, so consecutive steps
+    reference scattered node ids and the grid consensus's band-locality
+    assumption fails (coverage collapses; ops/sweep.select_consensus
+    then auto-falls back to the gather-sum consensus).  Path structure,
+    distances and ranks are unchanged — only the step->node map is
+    scrambled."""
+    pidx = synthetic_path_index(n_nodes, n_paths, steps_per_path, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    perm = rng.permutation(n_nodes)  # new node index of old index i
+    new_node_idx = perm[pidx.step_node_idx]
+    new_node_len = np.empty_like(pidx.node_len)
+    new_node_len[perm] = pidx.node_len
+    new_handle = ((new_node_idx + 1) << 1) | (pidx.step_handle & 1)
+    return PathIndex(
+        step_handle=new_handle,
+        step_pos=pidx.step_pos,
+        step_path=pidx.step_path,
+        step_rank=pidx.step_rank,
+        path_first=pidx.path_first,
+        path_count=pidx.path_count,
+        path_len=pidx.path_len,
+        node_ids=pidx.node_ids,
+        node_len=new_node_len,
+        handle_to_idx={int(n): i for i, n in enumerate(pidx.node_ids)},
+        step_node_idx=new_node_idx,
+        step_count_of_step=pidx.step_count_of_step,
+    )
+
+
 def rank_quality(order_a: np.ndarray, order_b: np.ndarray) -> dict:
     """Rank agreement between two orderings of the same node set:
     mean absolute rank displacement (as a fraction of N) and Spearman
@@ -110,6 +166,403 @@ def bench_params(pidx: PathIndex, batch: int, rounds: int) -> PathSGDParams:
         dtype="float32",
         pow_mode="fast",
     )
+
+
+def _sync(device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _timed_runs(make_inputs, run, device, repeats: int):
+    """``run(*make_inputs())`` once as warm-up, then ``repeats`` times,
+    each run timed from a synchronisation of ``device`` after its inputs
+    are made to one after it returns.  Returns (the warm-up's whole
+    seconds, inputs included; the best run's seconds; its output)."""
+    def timed():
+        inputs = make_inputs()
+        _sync(device)
+        t0 = time.perf_counter()
+        out = run(*inputs)
+        _sync(device)
+        return time.perf_counter() - t0, out
+
+    t0 = time.perf_counter()
+    timed()
+    warmup = time.perf_counter() - t0
+    best, out = min((timed() for _ in range(repeats)), key=lambda t: t[0])
+    return warmup, best, out
+
+
+def bench_batched_1d(
+    pidx: PathIndex, batch: int = 262_144, rounds: int = 50,
+    repeats: int = 3, *, device="cuda",
+) -> dict:
+    """Time the batched engine (``ops/sgd.build_1d_runner``) end to end
+    on ``device``.  Returns rates in updates/s; ``warmup_s`` is the
+    first run's seconds."""
+    import torch
+
+    from .device import resolve_device
+    from .ops.keys import key_data
+    from .ops.sgd import build_1d_runner
+
+    dev = resolve_device(device)
+    params = bench_params(pidx, batch, rounds)
+    run, make_x0, _n = build_1d_runner(pidx, params, device=dev)
+    key = key_data(params.seed)
+    warmup, best, x = _timed_runs(lambda: (make_x0(), key), run, dev,
+                                   repeats)
+    total_updates = batch * rounds
+    return {
+        "seconds": best,
+        "updates": total_updates,
+        "updates_per_s": total_updates / best,
+        "final_finite": bool(torch.isfinite(x).all()),
+        "batch": batch,
+        "rounds": rounds,
+        "warmup_s": warmup,
+    }
+
+
+def bench_sweep_1d(
+    pidx: PathIndex, rounds: int = 50, repeats: int = 3,
+    per_octave: Optional[int] = None, consensus_every: Optional[int] = None,
+    active_frac: Optional[float] = None, rotate=None,
+    dense_upto: Optional[int] = None, proposals: Optional[int] = None,
+    *, device="cuda",
+) -> dict:
+    """Time the 1D sweep engine (throughput mode: ``rounds`` sweeps of
+    one iteration each) on ``device``.  The runner is built once; each
+    run starts from a fresh state and is timed from one synchronisation
+    to the next; ``warmup_s`` is the first run's seconds."""
+    import torch
+
+    from .device import resolve_device
+    from .ops.keys import key_data
+    from .ops.sweep import build_sweep_runner
+    from .ops.sweep_policy import auto_sweep_config
+
+    dev = resolve_device(device)
+    p = bench_params(pidx, 1, 1)
+    S = pidx.total_steps
+    N = pidx.num_nodes
+    frac = (active_frac if active_frac is not None
+            else auto_sweep_config(S, N)["active_frac"])
+    ups = max(1, int(S * frac))
+    p = replace(p, iter_max=rounds - 1, min_term_updates=ups)
+
+    run, arrays, make_state, info = build_sweep_runner(
+        pidx, p, per_octave=per_octave, consensus_every=consensus_every,
+        active_frac=frac, rotate=rotate, dense_upto=dense_upto,
+        proposals=proposals, device=dev,
+    )
+    key = key_data(p.seed)
+    warmup, best, x = _timed_runs(
+        lambda: (*make_state(), key, *arrays), run, dev, repeats)
+    updates = info["n_sweeps"] * info["updates_per_sweep"]
+    return {
+        "seconds": best,
+        "updates": updates,
+        "updates_per_s": updates / best,
+        "sweeps": info["n_sweeps"],
+        "final_finite": bool(torch.isfinite(x).all()),
+        "active_frac": frac,
+        # the knobs in effect after the runner's adjustments (rotate
+        # resolved, ce fitted and rounded up to whole rotations)
+        "consensus_every_eff": info["consensus_every"],
+        "rotate_eff": info["rotate"],
+        "proposals": info.get("proposals", 1),
+        "consensus": info.get("consensus"),
+        "consensus_coverage": (round(info["consensus_coverage"], 4)
+                               if info.get("consensus_coverage") is not None
+                               else None),
+        "kernel_buckets_per_phase": info.get("kernel_buckets_per_phase"),
+        "xla_buckets_per_phase": info.get("xla_buckets_per_phase"),
+        "warmup_s": warmup,
+    }
+
+
+def roofline_model(rate: float, info: dict, applied_frac: float,
+                   consensus_ms: float) -> dict:
+    """HBM bytes and f32 operations per update of the 1D sweep engine at
+    a measured ``rate`` (pair-proposals/s), against the H100 peaks
+    ``HBM_BYTES_S`` and ``F32_OPS_S``.
+
+    The per-element-per-sweep counts are the JAX model's
+    (``gfasort_tpu/bench_util.py::roofline_model``), which count the
+    passes the port makes too (P = proposals per sweep):
+
+    HBM bytes:
+      * sampler: read rank+cnt (8), write P choices (4P)       = 8 + 4P
+      * bucket kernel (k <= KMAX): read xs/pos (8) + P choices
+        (4P), write dsum/csum (8)                              = 16 + 4P
+      * roll passes (k > KMAX, the JAX "XLA" buckets): re-read
+        xs + P choices at 2 alignments (8 + 8P), term distances
+        8 per bucket, dsum/csum read+write (16)                = 24 + 8P + 8·n_roll
+      * combine: read xs/dsum/csum, write xs                    = 16
+    Operations (f32 ALU ops; the ``vpu_*`` keys keep the JAX names and
+    read as f32 ALU operations on this card):
+      * sampler: ~76 shared + ~114 per proposal (155 at P = 1)
+      * bucket kernel: (62 + 8P) per bucket
+      * roll pass: (42 + 8P) per bucket
+      * combine: ~10
+
+    The consensus is accounted as measured time: ``consensus_ms`` is one
+    consensus run's milliseconds on the same device (no default: it is
+    measured where the rate is), amortised over ``consensus_every``
+    sweeps."""
+    n_kern = float(info.get("kernel_buckets_per_phase") or 0.0)
+    n_xla = float(info.get("xla_buckets_per_phase") or 0.0)
+    ce = max(int(info.get("consensus_every_eff")
+                 or info.get("consensus_every") or 1), 1)
+    frac = float(info.get("active_frac") or 1.0)
+    P = max(int(info.get("proposals") or 1), 1)
+
+    bytes_pe = ((8 + 4 * P) + (16 + 4 * P)
+                + (24 + 8 * P + 8 * n_xla if n_xla else 0) + 16)
+    ops_pe = (76 + 114 * P if P > 1 else 155) \
+        + (62 + 8 * P) * n_kern + (42 + 8 * P) * n_xla + 10
+    # the rate counts proposals (P·S·frac per sweep); the per-element
+    # costs do not depend on the density (masked passes), so the cost
+    # per update is the per-element cost over frac·P
+    bytes_pu = bytes_pe / max(frac * P, 1e-9)
+    ops_pu = ops_pe / max(frac * P, 1e-9)
+
+    bw_frac = bytes_pu * rate / HBM_BYTES_S
+    vpu_frac = ops_pu * rate / F32_OPS_S
+    ups = float(info.get("updates_per_sweep")
+                or (info["updates"] / max(info.get("sweeps", 1), 1)
+                    if "updates" in info else 1.0))
+    t_sweep_s = ups / max(rate, 1.0)
+    cons_frac = (consensus_ms * 1e-3 / ce) / max(t_sweep_s, 1e-12)
+    binding = "vpu" if vpu_frac >= bw_frac else "hbm"
+    ceiling = (F32_OPS_S / ops_pu if binding == "vpu"
+               else HBM_BYTES_S / bytes_pu)
+    return {
+        "bytes_per_update": round(bytes_pu, 1),
+        "vpu_ops_per_update": round(ops_pu, 1),
+        "achieved_bw_frac": round(bw_frac, 4),
+        "vpu_frac": round(vpu_frac, 4),
+        "consensus_time_frac": round(cons_frac, 4),
+        "applied_updates_frac": round(applied_frac, 4),
+        "binding": binding,
+        "implied_ceiling_updates_per_s": round(ceiling, 1),
+        "model": "gfasort_tpu_torch.bench_util.roofline_model",
+    }
+
+
+def measure_applied_frac(pidx: PathIndex, rounds: int = 24, *,
+                         device="cuda", **cfg) -> dict:
+    """Fraction of the proposed pair updates the 1D sweep engine applies
+    under ``cfg`` (the ``bench_sweep_1d`` schedule of ``rounds``
+    sweeps), replayed exactly by ``ops.sweep.build_applied_counter``
+    with the engine's keys on ``device``."""
+    from .ops.keys import key_data
+    from .ops.sweep import build_applied_counter
+    from .ops.sweep_policy import auto_sweep_config
+
+    p = bench_params(pidx, 1, 1)
+    S, N = pidx.total_steps, pidx.num_nodes
+    frac = cfg.get("active_frac")
+    if frac is None:
+        frac = auto_sweep_config(S, N)["active_frac"]
+        cfg = dict(cfg, active_frac=frac)
+    ups = max(1, int(S * frac))
+    p = replace(p, iter_max=rounds - 1, min_term_updates=ups)
+    count_fn, arrays, info = build_applied_counter(pidx, p, device=device,
+                                                   **cfg)
+    res = count_fn(key_data(p.seed), *arrays)
+    applied, proposed = res["applied"], res["proposed_actual"]
+    # the scheduled denominator: the counter's executed sweeps (whole
+    # consensus periods) at the expected S·active_frac per sweep;
+    # ``proposed_actual`` is the replay's exact activation count
+    executed = info["total_exec_sweeps"] * info["updates_per_sweep"]
+    return {
+        "applied": applied,
+        "proposed_actual": proposed,
+        "proposed_scheduled": executed,
+        "applied_frac": applied / max(proposed, 1),
+        "applied_vs_scheduled": applied / max(executed, 1),
+        "total_exec_sweeps": info["total_exec_sweeps"],
+        "n_sweeps": info["n_sweeps"],
+    }
+
+
+def bench_native_1d(pidx: PathIndex, n_updates: int = 2_000_000,
+                    repeats: int = 3) -> Optional[dict]:
+    """CPU baseline: the C++ sequential oracle's inner loop (the
+    reference's per-update semantics at one thread), best of
+    ``repeats`` passes.  None when the library cannot be built."""
+    from .native import _p64, _pf64, available, load
+    from .ops.fastpow import zeta_table
+
+    if not available():
+        return None
+    lib = load()
+    params = bench_params(pidx, 1, 1)
+    sp = np.ascontiguousarray(pidx.step_path, dtype=np.int64)
+    sr = np.ascontiguousarray(pidx.step_rank, dtype=np.int64)
+    spos = np.ascontiguousarray(pidx.step_pos, dtype=np.int64)
+    snode = np.ascontiguousarray(pidx.step_node_idx, dtype=np.int64)
+    pf = np.ascontiguousarray(pidx.path_first, dtype=np.int64)
+    pc = np.ascontiguousarray(pidx.path_count, dtype=np.int64)
+    x = pidx.initial_positions().copy()
+    zetas = zeta_table(
+        params.space, params.space_max, params.space_quantization_step,
+        params.theta,
+    )
+    best = float("inf")
+    for _ in range(max(1, repeats)):
+        t0 = time.perf_counter()
+        lib.sgd1d_bench(
+            pidx.total_steps, _p64(sp), _p64(sr), _p64(spos), _p64(snode),
+            _p64(pf), _p64(pc),
+            _pf64(x), n_updates, float(params.eta_max), params.theta,
+            params.space, params.space_max, params.space_quantization_step,
+            42, _pf64(zetas), len(zetas),
+        )
+        best = min(best, time.perf_counter() - t0)
+    return {"seconds": best, "updates": n_updates,
+            "updates_per_s": n_updates / best, "repeats": repeats}
+
+
+def bench_native_1d_mt(
+    workload: tuple = (1_000_000, 16, 250_000),
+    n_updates_each: int = 2_000_000,
+    n_workers: Optional[int] = None,
+) -> Optional[dict]:
+    """Multi-core CPU baseline: ``n_workers`` spawned processes each run
+    the C++ oracle's loop at once on their own copy of the synthetic
+    workload (the reference runs Hogwild over all cores).  Each worker
+    owns its positions, so this counts compute and memory-bandwidth
+    contention but not Hogwild's shared-array cache traffic: a generous
+    estimate of the reference's all-core rate."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+
+    from .native import available
+
+    if not available():
+        return None
+    n_workers = n_workers or os.cpu_count() or 1
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            n_workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        futs = [
+            ex.submit(_native_bench_worker, workload, n_updates_each)
+            for _ in range(n_workers)
+        ]
+        rates = [f.result() for f in futs]
+    wall = time.perf_counter() - t0
+    total = n_updates_each * n_workers
+    return {
+        # the sum of the workers' rates (each times only its own loop;
+        # the loops overlap, so contention is counted): vs_baseline_mt's
+        # denominator
+        "updates_per_s": float(np.sum(rates)),
+        "updates_per_s_wall": total / wall,  # with start-up and set-up
+        "updates": total,
+        "seconds": wall,
+        "n_workers": n_workers,
+        "per_worker_median": float(np.median(rates)),
+    }
+
+
+def _native_bench_worker(workload: tuple, n_updates: int) -> float:
+    pidx = synthetic_path_index(*workload, seed=0)
+    r = bench_native_1d(pidx, n_updates)
+    return r["updates_per_s"] if r else 0.0
+
+
+def sweep_quality_vs_oracle(
+    n_nodes: int = 100_000,
+    n_paths: int = 4,
+    steps_per_path: int = 100_000,
+    iter_max: int = 30,
+    *,
+    device="cuda",
+    **sweep_kw,
+) -> Optional[dict]:
+    """Certificate of a 1D sweep configuration: run it (``sweep_kw``)
+    through a full schedule of ``iter_max`` iterations on ``device`` on
+    the seed-7 synthetic workload, and compare its node order with the
+    C++ oracle's on the same workload.  None when the oracle cannot be
+    built."""
+    from .native import available, path_linear_sgd_native
+    from .ops.sweep import path_linear_sgd_sweep
+
+    if not available():
+        return None
+    pidx = synthetic_path_index(n_nodes, n_paths, steps_per_path, seed=7)
+    p = PathSGDParams().derive_from_graph(pidx)
+    p = replace(p, iter_max=iter_max, dtype="float32", pow_mode="fast")
+
+    x_sweep = path_linear_sgd_sweep(None, p, pidx, device=device, **sweep_kw)
+    po = replace(p, dtype="float64", pow_mode="fpp")
+    x_oracle = path_linear_sgd_native(None, po, pidx)
+
+    q = rank_quality(np.argsort(x_sweep, kind="stable"),
+                     np.argsort(x_oracle, kind="stable"))
+    q["n_nodes"] = n_nodes
+    q["iter_max"] = iter_max
+    return q
+
+
+def bench_sweep_nd(
+    pidx: PathIndex, dims: int = 2, rounds: int = 48, repeats: int = 3,
+    consensus_every: Optional[int] = None, rotate=None,
+    active_frac: Optional[float] = None,
+    dense_upto: Optional[int] = None, proposals: Optional[int] = None,
+    *, device="cuda",
+) -> dict:
+    """Time the nD layout sweep engine on ``device`` (``rounds`` sweeps
+    of one iteration each), as :func:`bench_sweep_1d` times the 1D one."""
+    import torch
+
+    from .device import resolve_device
+    from .ops.exact import layout_initial_coords
+    from .ops.keys import key_data
+    from .ops.sweep_nd import build_sweep_nd_runner
+    from .ops.sweep_policy import auto_sweep_config
+    from .params import LayoutSGDParams
+
+    dev = resolve_device(device)
+    lp = LayoutSGDParams().derive_from_graph(pidx, dims)
+    S = pidx.total_steps
+    N = pidx.num_nodes
+    frac = (active_frac if active_frac is not None
+            else auto_sweep_config(S, N, layout=True)["active_frac"])
+    ups = max(1, int(S * frac))
+    lp = replace(lp, iter_max=rounds - 1, min_term_updates=ups,
+                 dtype="float32", pow_mode="fast")
+
+    run, arrays, make_state, info = build_sweep_nd_runner(
+        pidx, lp, consensus_every=consensus_every, active_frac=frac,
+        rotate=rotate, dense_upto=dense_upto, proposals=proposals,
+        device=dev,
+    )
+    init = layout_initial_coords(pidx, dims, lp.seed)
+    key = key_data(lp.seed)
+    warmup, best, xn = _timed_runs(
+        lambda: (*make_state(init), key, *arrays), run, dev, repeats)
+    updates = info["n_sweeps"] * info["updates_per_sweep"]
+    return {
+        "seconds": best,
+        "updates": updates,
+        "updates_per_s": updates / best,
+        "sweeps": info["n_sweeps"],
+        "dims": dims,
+        "final_finite": bool(torch.isfinite(xn).all()),
+        "consensus_every_eff": info["consensus_every"],
+        "rotate_eff": info["rotate"],
+        "proposals": info.get("proposals", 1),
+        "warmup_s": warmup,
+    }
 
 
 def layout_quality_vs_oracle(
@@ -171,6 +624,30 @@ def layout_quality_vs_oracle(
         "n_nodes": n_nodes,
         "dims": dims,
     }
+
+
+def gather_consensus_ms(pidx: PathIndex, *, device="cuda",
+                        reps: int = 20) -> float:
+    """Milliseconds of one run of the 1D engine's gather consensus on
+    ``pidx`` (f32 [S], the runner's tables) on ``device``: CUDA events
+    on the card (:func:`cuda_ms`), the host clock on the CPU."""
+    import torch
+
+    from .device import resolve_device
+    from .ops.node_sum import JAX_ROW_RUN, build_gather_consensus
+
+    dev = resolve_device(device)
+    gc = build_gather_consensus(pidx.step_node_idx, pidx.num_nodes, dev,
+                                run=JAX_ROW_RUN)
+    xs = torch.from_numpy(
+        pidx.initial_positions().astype(np.float32)[pidx.step_node_idx]).to(dev)
+    if dev.type == "cuda":
+        return cuda_ms(lambda: gc(xs), reps)
+    gc(xs)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        gc(xs)
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def cuda_ms(fn, reps: int = 20) -> float:

@@ -16,6 +16,9 @@ the terminal eta) and more consensus runs.  The plan reproduces that
 count (``SweepPlan.n_exec``).  At float64 every bucket runs as a roll
 pass, the sampler draws threefry bits and works in f64, and the
 consensus sums in f64, as in the JAX engine.
+
+``build_applied_counter`` replays the sampler of a schedule, with the
+engine's keys, and counts the pair updates the engine applies.
 """
 
 from __future__ import annotations
@@ -33,14 +36,14 @@ from ..params import PathSGDParams
 from . import runner_cache
 from .keys import key_data, sweep_key_table
 from .node_sum import JAX_ROW_RUN, build_gather_consensus
-from .sweep_common import (SamplerConsts, pack_choices_words, sample_blocks,
-                           sampler_consts, sweep_rng)
+from .sweep_common import (INACTIVE, SamplerConsts, pack_choices_words,
+                           sample_blocks, sampler_consts, sweep_rng)
 from .sweep_dense import bucket_apply
 from .sweep_plan import PhasePlan, make_sweep_plan, torch_dtype
 from .sweep_policy import SweepResult
 
-__all__ = ["apply_choices", "build_sweep_runner", "path_linear_sgd_sweep",
-           "path_sgd_sort_sweep", "sweep_once"]
+__all__ = ["apply_choices", "build_applied_counter", "build_sweep_runner",
+           "path_linear_sgd_sweep", "path_sgd_sort_sweep", "sweep_once"]
 
 
 def _roll_half(xs, pos, eta_t, shift: int, pairs, iota):
@@ -172,6 +175,83 @@ def build_sweep_runner(
     if ck is not None:
         runner_cache.put(ck, built)
     return built
+
+
+def build_applied_counter(
+    pidx: PathIndex,
+    params: PathSGDParams,
+    per_octave: Optional[int] = None,
+    consensus_every: Optional[int] = None,
+    active_frac: Optional[float] = None,
+    rotate=None,
+    dense_upto: Optional[int] = None,
+    proposals: Optional[int] = None,
+    *,
+    device="cuda",
+):
+    """Exact count of the pair updates a sweep schedule applies, by a
+    replay of its sampler (``gfasort_tpu/ops/sweep.py::
+    build_applied_counter``).
+
+    Whether a proposed pair is applied never depends on the positions:
+    it depends on the sampler's choice (from the key and the static rank
+    and cnt) and on the static path positions only (a pair at term
+    distance 0 is skipped).  So the replay draws every sweep's choices
+    with the engine's keys (``fold_in(base_key, e)``, per proposal
+    ``fold_in(key, p)``), eta and cooling from the clamped index, on
+    the route ``ops.env.sweep_knobs`` selects, and counts a +k choice at
+    step t when ``pos[t] != pos[t + k]`` and a -k choice when
+    ``pos[t] != pos[t - k]`` (indices modulo S, as the JAX counter's
+    rolls; the sampler never chooses a partner outside the path).
+
+    Returns (count_fn, arrays, info); ``count_fn(base_key, *arrays)`` ->
+    ``{"applied": int, "proposed_actual": int}``, the latter the
+    sampler's activations (choices != INACTIVE).  Both sum in int64 on
+    the device.  The replay covers ``info["total_exec_sweeps"]``, the
+    JAX counter's whole consensus periods (``n_periods * ce``): like it,
+    it leaves out the dispatch padding the engines also execute
+    (``SweepPlan.n_exec``)."""
+    dev = resolve_device(device)
+    plan = make_sweep_plan(pidx, params, per_octave, consensus_every,
+                           active_frac, rotate, dense_upto, proposals)
+    tdt = torch_dtype(plan.dtype)
+    S = pidx.total_steps
+    ce = plan.consensus_every
+    total_exec = -(-plan.n_sweeps // ce) * ce
+    consts = [[sampler_consts(ph, c, dev, tdt) for c in (False, True)]
+              for ph in plan.phases]
+    P = plan.proposals
+    arrays = static_arrays(pidx, dev, np.dtype(plan.dtype).type)
+
+    def count_fn(base_key, pos, rank, cnt):
+        keys = sweep_key_table(base_key, total_exec, P)
+        t = torch.arange(S, device=pos.device)
+        applied = torch.zeros((), dtype=torch.int64, device=pos.device)
+        proposed = torch.zeros_like(applied)
+        for e in range(total_exec):
+            i, _, cooling = plan.sweep(e)
+            c = consts[i][cooling]
+            draws = (sweep_rng(w, S, pos.device, plan.knobs.rng, pos.dtype)
+                     for w in keys[e])
+            for sidx in sample_blocks(c, draws, cooling, rank, cnt,
+                                      plan.active_frac, plan.knobs.snap):
+                active = sidx != int(INACTIVE)
+                back = sidx < 0
+                ki = torch.where(back, ~sidx, torch.where(active, sidx, 0))
+                k = c.offs[ki].to(torch.int64)
+                partner = torch.remainder(torch.where(back, t - k, t + k), S)
+                proposed += active.sum()
+                applied += (active & (pos[partner] != pos)).sum()
+        return {"applied": int(applied), "proposed_actual": int(proposed)}
+
+    info = {
+        "n_sweeps": plan.n_sweeps,
+        "total_exec_sweeps": total_exec,
+        "updates_per_sweep": plan.updates_per_sweep,
+        "proposed": plan.n_sweeps * plan.updates_per_sweep,
+        "active_frac": plan.active_frac,
+    }
+    return count_fn, arrays, info
 
 
 def path_linear_sgd_sweep(

@@ -635,3 +635,52 @@ def test_entry_round_on_cuda_close_to_cpu(cuda):
     fn_cpu, args_cpu = entry("cpu")
     torch.testing.assert_close(fn(*args).cpu(), fn_cpu(*args_cpu),
                                rtol=1e-5, atol=1e-4)
+
+
+def test_applied_counter_on_cuda_equals_cpu(cuda):
+    """The applied-update counter's integers on the card equal the CPU's.
+    CUDA's f32 exp / log may move a choice to a neighbouring bucket of
+    the same sign, but whether a choice is active depends on its bits
+    and the path structure only, and on the synthetic workload every
+    in-path pair has a nonzero term distance."""
+    from gfasort_tpu_torch.ops.sweep import build_applied_counter
+
+    pidx = synthetic_path_index(20_000, 4, 20_000, seed=5)
+    p = replace(PathSGDParams().derive_from_graph(pidx), dtype="float32",
+                iter_max=6)
+    kw = dict(proposals=12, per_octave=2, dense_upto=4, rotate=4,
+              consensus_every=4, active_frac=0.8)
+    out = {}
+    for dev in ("cpu", cuda):
+        fn, arrays, info = build_applied_counter(pidx, p, **kw, device=dev)
+        assert arrays[0].device.type == torch.device(dev).type
+        out[str(dev)] = (fn(key_data(p.seed), *arrays), info)
+    assert out[str(cuda)] == out["cpu"]
+    res, info = out["cpu"]
+    assert info["total_exec_sweeps"] == 8
+    assert 0 < res["applied"] == res["proposed_actual"]
+
+
+def test_bench_sweep_1d_on_cuda(cuda):
+    """``bench_sweep_1d`` on the card: the bucket kernel launches once per
+    executed sweep of each run (warm-up and timed), and the counts equal
+    the CPU's."""
+    from gfasort_tpu_torch.bench_util import bench_params, bench_sweep_1d
+
+    pidx = synthetic_path_index(20_000, 4, 20_000, seed=0)
+    kw = dict(proposals=12, per_octave=2, dense_upto=4, rotate=2,
+              consensus_every=3, active_frac=1.0)
+    # the bench schedule: 6 sweeps, ce 3 rounded up to whole rotations
+    plan = make_sweep_plan(pidx, replace(
+        bench_params(pidx, 1, 1), iter_max=5,
+        min_term_updates=pidx.total_steps), **kw)
+    assert (plan.n_sweeps, plan.consensus_every, plan.n_exec) == (6, 4, 8)
+    before = bucket_apply.launches
+    got = bench_sweep_1d(pidx, rounds=6, repeats=1, device=cuda, **kw)
+    assert bucket_apply.launches - before == 2 * plan.n_exec
+    ref = bench_sweep_1d(pidx, rounds=6, repeats=1, device="cpu", **kw)
+    timed = {"seconds", "updates_per_s", "warmup_s"}
+    assert {k: v for k, v in got.items() if k not in timed} == {
+        k: v for k, v in ref.items() if k not in timed}
+    assert got["final_finite"] and got["seconds"] > 0
+    assert got["updates_per_s"] == got["updates"] / got["seconds"]
