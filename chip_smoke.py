@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Phases (they run in the order 1-5, 19, 6-8, 13's CLI run, 20-21, 9,
-11-12, 15-18, 22, 13-14, 10, 23); any failed check raises and the script
-exits non-zero.  Every phase line carries ``t_s``, the script's seconds
-so far:
+Phases (they run in the order 1-4, 24-27, 5, 19, 6-8, 13's CLI run,
+20-21, 9, 11-12, 15-18, 22, 13-14, 10, 23); any failed check raises and
+the script exits non-zero.  Every phase line carries ``t_s``, the
+script's seconds so far:
 
 1. build      — compile the hand-written CUDA kernels from ``csrc/``, one
                 ``nvcc`` per source, all at once (timed).
@@ -36,20 +36,23 @@ so far:
 6. main       — write the bench-shape GFA (1M nodes, 16 paths x 250k
                 steps) and run ``python -m gfasort_tpu_torch -p sYgs``
                 (engine auto -> the sweep engine, N > 200k) through
-                ``cli.main``; the 1D kernel's launch counter must move,
+                ``cli.main``; the sampler, bucket and roll kernels must
+                each launch once per executed sweep, and
                 every path hash, the node and the edge count must be
                 preserved.  A direct engine run on the same graph checks
                 that the positions are finite.
 7. layout     — ``-p L --dimensions 2`` on the same GFA through
-                ``cli.main`` (the nD sweep engine): the nD kernel launches
-                once per executed sweep, the TSV holds finite coordinates
+                ``cli.main`` (the nD sweep engine): the sampler, nD
+                bucket and nD roll kernels launch once per executed
+                sweep, the TSV holds finite coordinates
                 for both ends of every node, the path hashes and the node
                 and edge counts are unchanged.
 8. layout_parts — the same 2D layout taken apart: the host set-up (path
                 index, initial coordinates, plan, consensus tables,
                 upload, each on the host clock) and one rotation of sweeps
-                with CUDA events around the sampler, the kernel, the roll
-                passes and the combine, and one consensus run.
+                with CUDA events around the sampler kernel (with the
+                chosen ends' rows), the nD bucket kernel and the roll
+                kernel with the combine, and one consensus run.
 9. quality    — the port's 1D sweep against the sequential oracle on the
                 100k-node certificate workload: rank-MAE/N <= 2e-3 and
                 Spearman >= 0.999.
@@ -64,8 +67,11 @@ so far:
                 order certified on the 100k-node workload against the
                 same oracle as ``quality``.
 12. sweep_threefry — the same at float32 with ``GFASORT_SWEEP_RNG=
-                threefry``: the bucket kernel launches once per executed
-                sweep on the bench index; the certificate as above.
+                threefry``: the bucket and roll kernels launch once per
+                executed sweep on the bench index, the sampler kernel
+                never (threefry draws run the plain sampler); the
+                certificate as above.  (At f64 none of the three
+                launches.)
 13. batched   — the batched engine: ``-p Y --engine batched
                 --iter-max 30`` (BATCHED_CLI_ITER, cut from the CLI's 100)
                 on the bench GFA through ``cli.main`` (hashes and counts kept,
@@ -141,9 +147,37 @@ so far:
                 subprocess at BENCH_ENV (24 rounds, cut from 96), its
                 kernel counters from 0: every stdout line parses, the last
                 is complete with every certificate passing, a positive
-                headline and a roofline, and both bucket kernels
-                launched; the headline, vs_baseline, the applied fraction
-                and the roofline fractions printed.
+                headline and a roofline, and both bucket kernels, the
+                sampler and both roll kernels launched; the headline,
+                vs_baseline, the applied fraction and the roofline
+                fractions printed.
+24. sampler   — the per-sweep sampler kernel (``csrc/sweep_sampler.cu``)
+                against its plain version ``sample_words_ref`` on the
+                card, on the bench index (S = 4M, its real rank and cnt)
+                and the bench plans' phases 0 and 1: the 1D plan's P
+                (12), the 2D layout plan's (8) and the 3D one's (4), the
+                last two with the end coin, and P = 1; warm and cooling,
+                active fraction 1.0 and 0.6, snap stoch and down: every word
+                ``torch.equal`` (else the differing choices and the worst
+                bucket distance are raised); each plan's main case timed
+                beside the plain version and the bound.
+25. roll      — both roll-and-combine kernels (``csrc/roll_apply.cu``)
+                against ``roll_apply_ref`` / ``roll_apply_nd_ref`` on the
+                bench index, plan phases 0 and 1 with the sampler's words
+                and the bucket kernels' sums, and phase 0 with every
+                bucket a roll bucket: 1D, 2D and 3D, ``torch.equal``;
+                each timed beside the plain version and the bound.
+26. whole_sweep — one consensus period of the 1D engine (the bench plan)
+                and of the 2D engine (the layout plan) on the bench
+                index: ``sweep_once`` / ``nd_sweep_once`` with the kernels
+                against the same sweeps composed from the plain sampler
+                and roll passes, then the consensus: ``torch.equal``;
+                the device launches and device ms of one sweep of each
+                (``torch.profiler``).
+27. sweep_parts — one rotation of 1D sweeps on the bench index taken
+                apart with CUDA events (the sampler, bucket and roll
+                kernels), the whole sweep, the plain composition and the
+                consensus.
 
 Then the ``nvidia-smi`` card line, one JSON line describing every kernel,
 and ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -349,21 +383,29 @@ def phase_kernel_nd(plans, S, pos_np, card_line):
 
 
 def reset_launches() -> None:
-    from gfasort_tpu_torch.ops import shift_sum, sweep_dense, sweep_fused
+    from gfasort_tpu_torch.ops import (roll_apply, shift_sum, sweep_common,
+                                       sweep_dense, sweep_fused)
 
     sweep_dense.bucket_apply.launches = 0
     sweep_dense.dense_apply_nd.launches = 0
     sweep_fused.sweep_apply.launches = 0
+    sweep_common.sample_words.launches = 0
+    roll_apply.roll_apply.launches = 0
+    roll_apply.roll_apply_nd.launches = 0
     for v in shift_sum.VARIANTS:
         shift_sum.shift_sum.launches[v] = 0
 
 
 def read_launches() -> dict:
-    from gfasort_tpu_torch.ops import shift_sum, sweep_dense, sweep_fused
+    from gfasort_tpu_torch.ops import (roll_apply, shift_sum, sweep_common,
+                                       sweep_dense, sweep_fused)
 
     return {"bucket_apply": sweep_dense.bucket_apply.launches,
             "dense_apply_nd": sweep_dense.dense_apply_nd.launches,
             "sweep_apply": sweep_fused.sweep_apply.launches,
+            "sweep_sampler": sweep_common.sample_words.launches,
+            "roll_apply": roll_apply.roll_apply.launches,
+            "roll_apply_nd": roll_apply.roll_apply_nd.launches,
             **{f"shift_sum_{v}": n
                for v, n in shift_sum.shift_sum.launches.items()}}
 
@@ -453,6 +495,434 @@ def phase_shift_probe(card_line):
     return results
 
 
+def ops_sampler(P: int) -> int:
+    """f32 arithmetic ops per step of the sampler, per proposal: u
+    (convert, scale), the Zipf draw (n, u * zeta, eta_z * u - eta_z + 1,
+    the clamp, log, alpha *, exp, n *, 1 +, two clamps, two compares),
+    the uniform draw (convert, multiply) and the stochastic snap (four
+    converts, the u2 scale, two subtractions, max, divide, compare); the
+    u32 hash and the integer selects and searches are not counted."""
+    return 30 * P
+
+
+def field_distance(words_a, words_b, P: int):
+    """(differing choices, the largest bucket distance among them) of
+    two word lists, for a report that never loosens the comparison."""
+    from gfasort_tpu_torch.ops.sweep_common import INACTIVE8, unpack_choice
+
+    def fields(words):
+        return ([words[0]] if P == 1 else
+                [unpack_choice(words[p // 4], p % 4) for p in range(P)])
+
+    n, worst = 0, 0
+    for a, b in zip(fields(words_a), fields(words_b)):
+        d = a != b
+        n += int(d.sum())
+        if d.any():
+            ai, bi = a[d].long(), b[d].long()
+            inactive = (ai == int(INACTIVE8)) | (bi == int(INACTIVE8)) | (
+                ai == 0x7FFFFFF) | (bi == 0x7FFFFFF) | ((ai < 0) != (bi < 0))
+            ki_a = torch.where(ai < 0, ~ai, ai)
+            ki_b = torch.where(bi < 0, ~bi, bi)
+            dist = torch.where(inactive, 1 << 20, (ki_a - ki_b).abs())
+            worst = max(worst, int(dist.max()))
+    return n, worst
+
+
+def sampler_plans(bench_plan, nd_plans):
+    """The sampler phase's (name, plan, P, end coin) cases: the 1D bench
+    plan at its P, the 2D and 3D layout plans at theirs, and P = 1."""
+    return (("1d", bench_plan, bench_plan.proposals, False),
+            ("2d", nd_plans[2], nd_plans[2].proposals, True),
+            ("3d", nd_plans[3], nd_plans[3].proposals, True),
+            ("p1", bench_plan, 1, False))
+
+
+def phase_sampler(bench, bench_plan, nd_plans, card_line):
+    """The sampler kernel against its plain version on the card, on the
+    bench index (its real rank and cnt) and plan phases 0 and 1, every
+    case of cooling, activity fraction and snap, the nD cases with their
+    end coin: ``torch.equal``, else the count of differing choices and
+    the worst bucket distance are raised.  The main case of each plan
+    (phase 0, warm, fraction 1, stochastic snap) is timed."""
+    from gfasort_tpu_torch.ops.keys import key_data, sweep_key_table
+    from gfasort_tpu_torch.ops.sweep_common import (sample_words,
+                                                    sample_words_ref,
+                                                    sampler_consts)
+
+    dev = torch.device("cuda")
+    S = bench.total_steps
+    rank = torch.from_numpy(bench.step_rank.astype(np.int32)).to(dev)
+    cnt = torch.from_numpy(bench.step_count_of_step.astype(np.int32)).to(dev)
+    results = {}
+    for name, plan, P, coin in sampler_plans(bench_plan, nd_plans):
+        key_words = sweep_key_table(key_data(7), 1, P)[0]
+        checked = 0
+        for ph_i in (0, 1):
+            for cooling in (False, True):
+                consts = sampler_consts(plan.phases[ph_i], cooling, dev)
+                for frac in (1.0, 0.6):
+                    for snap in ("stoch", "down"):
+                        args = (consts, key_words, cooling, rank, cnt, frac,
+                                snap)
+                        w_k, c_k = sample_words(*args, coin=coin)
+                        w_r, c_r = sample_words_ref(*args, coin=coin)
+                        torch.cuda.synchronize()
+                        where = (f"{name}, phase {ph_i}, cooling {cooling}, "
+                                 f"frac {frac}, snap {snap}")
+                        if not all(torch.equal(a, b) for a, b in zip(w_k, w_r)):
+                            n, worst = field_distance(w_k, w_r, P)
+                            raise AssertionError(
+                                f"sampler words differ ({where}): {n} "
+                                f"choices, worst bucket distance {worst}")
+                        if coin and not torch.equal(c_k, c_r):
+                            raise AssertionError(f"end coin differs ({where})")
+                        checked += 1
+                        del w_k, w_r, c_k, c_r
+        consts = sampler_consts(plan.phases[0], False, dev)
+        args = (consts, key_words, False, rank, cnt, 1.0, "stoch")
+        ms = cuda_ms(lambda: sample_words(*args, coin=coin))
+        plain_ms = cuda_ms(lambda: sample_words_ref(*args, coin=coin), 3)
+        # rank and cnt in, the words (and the coin's byte) out
+        bms, by = bound_ms(S, 2, n_words(P) + (0.25 if coin else 0),
+                           ops_sampler(P))
+        rec = dict(S=S, P=P, end_coin=coin, cases_checked=checked,
+                   max_abs_err=0.0, bit_identical=True, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        results[name] = rec
+        say("sampler", card_line, plan=name, **rec)
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_roll(bench, bench_plan, nd_plans, card_line):
+    """Both roll kernels against their plain versions on the card, on
+    the bench index with the sampler's words and the bucket kernels'
+    sums, plan phases 0 and 1 (1D at the bench plan's P, 2D and 3D at
+    the layout plans'), and phase 0 with every bucket a roll bucket (as
+    under ``GFASORT_DENSE_KERNEL=xla``): ``torch.equal``; each timed."""
+    from gfasort_tpu_torch.convert import layout_static_arrays
+    from gfasort_tpu_torch.ops.keys import key_data, sweep_key_table
+    from gfasort_tpu_torch.ops.roll_apply import (roll_apply, roll_apply_nd,
+                                                  roll_apply_nd_ref,
+                                                  roll_apply_ref)
+    from gfasort_tpu_torch.ops.sweep_common import sample_words, sampler_consts
+    from gfasort_tpu_torch.ops.sweep_dense import bucket_apply, dense_apply_nd
+    from gfasort_tpu_torch.ops.sweep_nd import chosen_ends
+
+    dev = torch.device("cuda")
+    S = bench.total_steps
+    rng = np.random.default_rng(3)
+    pos, rank, cnt, rev, length = layout_static_arrays(bench, dev)
+    results = {}
+
+    def cases(plan):
+        for ph_i in (0, 1):
+            ph = plan.phases[ph_i]
+            yield ph_i, ph, ph.kernel_buckets, ph.roll_buckets
+        ph = plan.phases[0]
+        yield "0_all", ph, (), tuple(sorted(ph.kernel_buckets + ph.roll_buckets,
+                                            key=lambda b: b[1]))
+
+    def check(tag, out, ref, **info):
+        if not torch.equal(out, ref):
+            err = float((out - ref).abs().max())
+            raise AssertionError(f"{tag} off by {err} ({info})")
+
+    # 1D
+    P = bench_plan.proposals
+    xs = torch.from_numpy((rng.standard_normal(S) * 100).astype(np.float32)).to(dev)
+    eta = float(bench_plan.sweep_eta[0])
+    key_words = sweep_key_table(key_data(5), 1, P)[0]
+    for ph_i, ph, kb, rb in cases(bench_plan):
+        words, _ = sample_words(sampler_consts(ph, False, dev), key_words,
+                                False, rank, cnt, 1.0)
+        sums = bucket_apply(xs, pos, words, eta, kb, P) if kb else (None, None)
+        args = (xs, pos, words, eta, rb, P, *sums)
+        out = roll_apply(*args)
+        ref = roll_apply_ref(*args)
+        torch.cuda.synchronize()
+        check("roll_apply", out, ref, phase=ph_i)
+        ms = cuda_ms(lambda: roll_apply(*args))
+        plain_ms = cuda_ms(lambda: roll_apply_ref(*args), 3)
+        # xs, pos, dsum, csum and the words in, xs out
+        bms, by = bound_ms(S, 2 + 2 * bool(kb) + n_words(P), 1,
+                           ops_1d(P, len(rb)) + 3)
+        rec = dict(S=S, P=P, roll_buckets=[list(b) for b in rb],
+                   kernel_buckets=len(kb), max_abs_err=0.0,
+                   bit_identical=True, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bms, bound_by=by)
+        results[("1d", ph_i)] = rec
+        say("roll", card_line, dims=1, phase_of_plan=ph_i, **rec)
+        del words, sums, args, out, ref
+    del xs
+    # nD
+    for D in (2, 3):
+        plan = nd_plans[D]
+        P = plan.proposals
+        eta = float(plan.sweep_eta[0])
+        cs = torch.from_numpy(np.concatenate([
+            bench_layout_coords(rng, bench.step_pos.astype(np.float32), D)
+            for _ in range(2)])).to(dev)
+        key_words = sweep_key_table(key_data(6), 1, P)[0]
+        for ph_i, ph, kb, rb in cases(plan):
+            words, coin = sample_words(sampler_consts(ph, False, dev),
+                                       key_words, False, rank, cnt, 1.0,
+                                       coin=True)
+            my_pos, lane0, my_c = chosen_ends(cs, pos, length, rev, coin)
+            sums = (dense_apply_nd(my_pos, words, my_c, eta, kb, P) if kb
+                    else (None, None))
+            args = (my_pos, my_c, lane0, cs, words, eta, rb, P, *sums)
+            out = roll_apply_nd(*args)
+            ref = roll_apply_nd_ref(*args)
+            torch.cuda.synchronize()
+            check("roll_apply_nd", out, ref, dims=D, phase=ph_i)
+            ms = cuda_ms(lambda: roll_apply_nd(*args))
+            plain_ms = cuda_ms(lambda: roll_apply_nd_ref(*args), 3)
+            # my_pos, my_c, lane0's byte, cs, acc, wacc and the words in,
+            # cs out
+            bms, by = bound_ms(S, 1 + D + 0.25 + 2 * D + (D + 1) * bool(kb)
+                               + n_words(P), 2 * D,
+                               ops_nd(D, P, len(rb)) + 4 * D + 1)
+            rec = dict(S=S, D=D, P=P, roll_buckets=[list(b) for b in rb],
+                       kernel_buckets=len(kb), max_abs_err=0.0,
+                       bit_identical=True, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bms, bound_by=by)
+            results[(f"{D}d", ph_i)] = rec
+            say("roll", card_line, dims=D, phase_of_plan=ph_i, **rec)
+            del words, coin, my_pos, lane0, my_c, sums, args, out, ref
+        del cs
+    torch.cuda.empty_cache()
+    return results
+
+
+def plain_sweep_1d(xs, pos, rank, cnt, phase, consts, key_words, eta,
+                   cooling, P, frac):
+    """One 1D sweep composed from the plain versions of the sampler and
+    the roll passes (the bucket kernel between them: the kernel phase
+    holds it to its plain version)."""
+    from gfasort_tpu_torch.ops.roll_apply import roll_apply_ref
+    from gfasort_tpu_torch.ops.sweep_common import sample_words_ref
+    from gfasort_tpu_torch.ops.sweep_dense import bucket_apply
+
+    words, _ = sample_words_ref(consts, key_words, cooling, rank, cnt, frac)
+    sums = (bucket_apply(xs, pos, words, eta, phase.kernel_buckets, P)
+            if phase.kernel_buckets else (None, None))
+    return roll_apply_ref(xs, pos, words, eta, phase.roll_buckets, P, *sums)
+
+
+def plain_sweep_nd(cs, pos, rank, cnt, rev, length, phase, consts, key_words,
+                   eta, cooling, P, frac):
+    """One nD sweep composed from the plain versions (the nD bucket
+    kernel between them)."""
+    from gfasort_tpu_torch.ops.roll_apply import roll_apply_nd_ref
+    from gfasort_tpu_torch.ops.sweep_common import sample_words_ref
+    from gfasort_tpu_torch.ops.sweep_dense import dense_apply_nd
+    from gfasort_tpu_torch.ops.sweep_nd import chosen_ends
+
+    words, coin = sample_words_ref(consts, key_words, cooling, rank, cnt,
+                                   frac, coin=True)
+    my_pos, lane0, my_c = chosen_ends(cs, pos, length, rev, coin)
+    sums = (dense_apply_nd(my_pos, words, my_c, eta, phase.kernel_buckets, P)
+            if phase.kernel_buckets else (None, None))
+    return roll_apply_nd_ref(my_pos, my_c, lane0, cs, words, eta,
+                             phase.roll_buckets, P, *sums)
+
+
+def device_launches(fn):
+    """(device kernels and copies, their device ms) of one call of
+    ``fn`` as ``torch.profiler`` records them; (None, None) where the
+    profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        return None, None
+    us = sum(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0)
+             for e in dev_events)
+    return len(dev_events), us / 1e3
+
+
+def phase_whole_sweep(bench, bench_plan, nd_plans, card_line):
+    """One consensus period of the 1D engine (the bench plan) and of the
+    2D engine (the layout plan) on the bench index: the engines'
+    ``sweep_once`` / ``nd_sweep_once`` with the kernels against the same
+    sweeps composed from the plain versions, then the consensus;
+    ``torch.equal`` on the state and the node positions.  Both timed on
+    the host clock from one synchronisation to the next; the device
+    launches and device ms of one sweep of each (``torch.profiler``)."""
+    from gfasort_tpu_torch.convert import (initial_state, layout_static_arrays)
+    from gfasort_tpu_torch.ops.keys import key_data, sweep_key_table
+    from gfasort_tpu_torch.ops.node_sum import (JAX_ROW_RUN,
+                                                build_gather_consensus)
+    from gfasort_tpu_torch.ops.sweep import sweep_once
+    from gfasort_tpu_torch.ops.sweep_common import sampler_consts
+    from gfasort_tpu_torch.ops.sweep_nd import nd_sweep_once
+
+    dev = torch.device("cuda")
+    pos, rank, cnt, rev, length = layout_static_arrays(bench, dev)
+
+    def period(fn, state, gc):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for e in range(ce):
+            state = fn(e, state)
+        state, xn = gc(state)
+        torch.cuda.synchronize()
+        return state, xn, time.perf_counter() - t0
+
+    for dims, plan in ((1, bench_plan), (2, nd_plans[2])):
+        P, ce = plan.proposals, plan.consensus_every
+        keys = sweep_key_table(key_data(11), ce, P)
+        consts = [[sampler_consts(ph, c, dev) for c in (False, True)]
+                  for ph in plan.phases]
+        if dims == 1:
+            gc = build_gather_consensus(bench.step_node_idx, bench.num_nodes,
+                                        dev, run=JAX_ROW_RUN)
+            state0, _ = initial_state(bench, None, dev)
+
+            def kernel(e, xs):
+                i, eta, cool = plan.sweep(e)
+                return sweep_once(xs, pos, rank, cnt, plan.phases[i],
+                                  consts[i][cool], keys[e], eta, cool, P,
+                                  plan.active_frac)
+
+            def plain(e, xs):
+                i, eta, cool = plan.sweep(e)
+                return plain_sweep_1d(xs, pos, rank, cnt, plan.phases[i],
+                                      consts[i][cool], keys[e], eta, cool, P,
+                                      plan.active_frac)
+        else:
+            gc = build_gather_consensus(bench.step_node_idx, bench.num_nodes,
+                                        dev)
+            rng = np.random.default_rng(8)
+            state0 = torch.from_numpy(np.concatenate([
+                bench_layout_coords(rng, bench.step_pos.astype(np.float32), 2)
+                for _ in range(2)])).to(dev)
+
+            def kernel(e, cs):
+                i, eta, cool = plan.sweep(e)
+                return nd_sweep_once(cs, pos, rank, cnt, rev, length,
+                                     plan.phases[i], consts[i][cool], keys[e],
+                                     eta, cool, P, plan.active_frac)
+
+            def plain(e, cs):
+                i, eta, cool = plan.sweep(e)
+                return plain_sweep_nd(cs, pos, rank, cnt, rev, length,
+                                      plan.phases[i], consts[i][cool],
+                                      keys[e], eta, cool, P, plan.active_frac)
+
+        s_k, xn_k, secs_k = period(kernel, state0, gc)
+        s_p, xn_p, secs_p = period(plain, state0, gc)
+        same = torch.equal(s_k, s_p) and torch.equal(xn_k, xn_p)
+        if not same:
+            err = float((s_k - s_p).abs().max())
+            raise AssertionError(f"{dims}D: one consensus period with the "
+                                 f"kernels differs from the plain sweeps by "
+                                 f"{err}")
+        if not bool(torch.isfinite(s_k).all()):
+            raise AssertionError(f"{dims}D: the period's state is not finite")
+        n_dev, dev_ms = device_launches(lambda: kernel(0, state0))
+        n_plain, plain_ms = device_launches(lambda: plain(0, state0))
+        say("whole_sweep", card_line, dims=dims, proposals=P,
+            sweeps=ce, steps=bench.total_steps, kernels_s=secs_k,
+            plain_s=secs_p, equal=True, device_launches_per_sweep=n_dev,
+            device_ms_per_sweep=dev_ms,
+            plain_device_launches_per_sweep=n_plain,
+            plain_device_ms_per_sweep=plain_ms,
+            launch_count_source="torch.profiler" if n_dev is not None
+            else "not measured: the profiler recorded no device activity")
+        del s_k, s_p, xn_k, xn_p, state0, gc, consts
+    torch.cuda.empty_cache()
+
+
+def phase_sweep_parts(bench, bench_plan, card_line, n_sweeps: int = 12):
+    """``n_sweeps`` sweeps of the 1D engine on the bench index taken
+    apart with CUDA events (the sampler kernel, the bucket kernel, the
+    roll kernel with the combine, as ``sweep_once`` calls them), the
+    whole sweep, the plain composition and the consensus."""
+    from gfasort_tpu_torch.convert import initial_state, static_arrays
+    from gfasort_tpu_torch.ops.keys import key_data, sweep_key_table
+    from gfasort_tpu_torch.ops.node_sum import (JAX_ROW_RUN,
+                                                build_gather_consensus)
+    from gfasort_tpu_torch.ops.roll_apply import roll_apply
+    from gfasort_tpu_torch.ops.sweep import sweep_once
+    from gfasort_tpu_torch.ops.sweep_common import sample_words, sampler_consts
+    from gfasort_tpu_torch.ops.sweep_dense import bucket_apply
+
+    dev = torch.device("cuda")
+    plan = bench_plan
+    P = plan.proposals
+    pos, rank, cnt = static_arrays(bench, dev)
+    xs0, _ = initial_state(bench, None, dev)
+    consts = [[sampler_consts(ph, c, dev) for c in (False, True)]
+              for ph in plan.phases]
+    keys = sweep_key_table(key_data(12), n_sweeps, P)
+
+    def run_parts(e, xs, ev):
+        i, eta, cool = plan.sweep(e)
+        phase = plan.phases[i]
+        ev[0].record()
+        words, _ = sample_words(consts[i][cool], keys[e], cool, rank, cnt,
+                                plan.active_frac)
+        ev[1].record()
+        sums = (bucket_apply(xs, pos, words, eta, phase.kernel_buckets, P)
+                if phase.kernel_buckets else (None, None))
+        ev[2].record()
+        out = roll_apply(xs, pos, words, eta, phase.roll_buckets, P, *sums)
+        ev[3].record()
+        return out
+
+    def whole(e, xs):
+        i, eta, cool = plan.sweep(e)
+        return sweep_once(xs, pos, rank, cnt, plan.phases[i], consts[i][cool],
+                          keys[e], eta, cool, P, plan.active_frac)
+
+    def plain(e, xs):
+        i, eta, cool = plan.sweep(e)
+        return plain_sweep_1d(xs, pos, rank, cnt, plan.phases[i],
+                              consts[i][cool], keys[e], eta, cool, P,
+                              plan.active_frac)
+
+    names = ("sampler", "kernel", "roll_combine")
+    parts = dict.fromkeys(names, 0.0)
+    x_p = x_w = xs0
+    whole(0, xs0)   # warm-up
+    for e in range(n_sweeps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        x_p = run_parts(e, x_p, ev)
+        torch.cuda.synchronize()
+        for j, name in enumerate(names):
+            parts[name] += ev[j].elapsed_time(ev[j + 1])
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for e in range(n_sweeps):
+        x_w = whole(e, x_w)
+    end.record()
+    torch.cuda.synchronize()
+    whole_ms = start.elapsed_time(end) / n_sweeps
+    if not torch.equal(x_p, x_w):
+        raise AssertionError("the timed parts differ from sweep_once")
+    plain_ms = cuda_ms(lambda: plain(0, xs0), 3)
+    gc = build_gather_consensus(bench.step_node_idx, bench.num_nodes, dev,
+                                run=JAX_ROW_RUN)
+    cons_ms = cuda_ms(lambda: gc(x_w), 5)
+    say("sweep_parts", card_line, dims=1, proposals=P, steps=bench.total_steps,
+        sweeps_timed=n_sweeps,
+        ms_per_sweep={k: v / n_sweeps for k, v in parts.items()},
+        whole_sweep_ms=whole_ms, plain_sweep_ms=plain_ms,
+        consensus_ms=cons_ms, consensus_every=plan.consensus_every)
+    del x_p, x_w, xs0, gc
+    torch.cuda.empty_cache()
+
+
 @functools.lru_cache(maxsize=None)
 def input_graph(gfa_in):
     """The GFA at ``gfa_in``, loaded once: the phases only read it (a
@@ -540,8 +1010,11 @@ def phase_main(gfa_in, tmp, card_line):
 
     t_cli, events, launches, _ = cli_step(gfa_in, tmp, "sorted",
                                           ["-p", "sYgs"])
-    if launches["bucket_apply"] <= 0:
-        raise AssertionError("the main path launched no bucket-apply kernel")
+    for k in ("sweep_sampler", "bucket_apply", "roll_apply"):
+        if launches[k] != plan.n_exec:
+            raise AssertionError(f"the main path launched {k} {launches[k]} "
+                                 f"times, expected one per executed sweep "
+                                 f"({plan.n_exec})")
     y_s = step_seconds(events, "SGD")
 
     # positions of the same engine on the same graph, read back
@@ -591,9 +1064,10 @@ def phase_layout(gfa_in, tmp, card_line):
     t_cli, events, launches, log = cli_step(
         gfa_in, tmp, "layout",
         ["-p", "L", "--dimensions", "2", "--layout-out", tsv])
-    if launches["dense_apply_nd"] != plan.n_exec:
-        raise AssertionError(f"{launches['dense_apply_nd']} nD kernel launches, "
-                             f"expected one per executed sweep ({plan.n_exec})")
+    for k in ("sweep_sampler", "dense_apply_nd", "roll_apply_nd"):
+        if launches[k] != plan.n_exec:
+            raise AssertionError(f"{launches[k]} {k} launches, expected one "
+                                 f"per executed sweep ({plan.n_exec})")
     stress = layout_stress(log)
     l_s = step_seconds(events, "2D layout")
     check_tsv(tsv, nodes0)
@@ -610,19 +1084,18 @@ def phase_layout(gfa_in, tmp, card_line):
 def phase_layout_parts(gfa_in, card_line, n_sweeps: int = 12):
     """The 2D layout's host set-up on the host clock, and ``n_sweeps``
     sweeps (one rotation) taken apart with CUDA events: the same calls
-    in the same order as ``ops.sweep_nd.nd_sweep_once``."""
-    import itertools
-
+    in the same order as ``ops.sweep_nd.nd_sweep_once`` (the sampler
+    kernel and the chosen ends' rows, the nD bucket kernel, the roll
+    kernel with the combine) and the consensus."""
     from gfasort_tpu_torch.convert import layout_state, layout_static_arrays
     from gfasort_tpu_torch.index import PathIndex
     from gfasort_tpu_torch.ops.exact import layout_initial_coords
     from gfasort_tpu_torch.ops.keys import key_data, sweep_key_table
     from gfasort_tpu_torch.ops.node_sum import build_gather_consensus
-    from gfasort_tpu_torch.ops.sweep_common import (pack_choices_words,
-                                                    sample_blocks,
-                                                    sampler_consts, sweep_rng)
+    from gfasort_tpu_torch.ops.roll_apply import roll_apply_nd
+    from gfasort_tpu_torch.ops.sweep_common import sample_words, sampler_consts
     from gfasort_tpu_torch.ops.sweep_dense import dense_apply_nd
-    from gfasort_tpu_torch.ops.sweep_nd import _roll_half_nd, nd_sweep_once
+    from gfasort_tpu_torch.ops.sweep_nd import chosen_ends, nd_sweep_once
     from gfasort_tpu_torch.ops.sweep_plan import make_layout_plan
     from gfasort_tpu_torch.params import LayoutSGDParams
 
@@ -658,33 +1131,16 @@ def phase_layout_parts(gfa_in, card_line, n_sweeps: int = 12):
         i, eta, cooling = plan.sweep(e)
         phase = plan.phases[i]
         ev[0].record()
-        first = sweep_rng(keys[e][0], S, dev)
-        rest = (sweep_rng(w, S, dev) for w in keys[e][1:])
-        sidxs = sample_blocks(consts[i][cooling], itertools.chain([first], rest),
-                              cooling, rank, cnt, plan.active_frac)
-        other_end = ((first[0] >> 29) & 1) == 1
-        my_pos = torch.where(other_end, pos + length, pos)
-        lane0 = torch.where(other_end, 1 - rev, rev) == 0
-        my_c = torch.where(lane0, cs[:D], cs[D:])
-        words = sidxs[:1] if P == 1 else pack_choices_words(sidxs)
+        words, coin = sample_words(consts[i][cooling], keys[e], cooling, rank,
+                                   cnt, plan.active_frac, coin=True)
+        my_pos, lane0, my_c = chosen_ends(cs, pos, length, rev, coin)
         ev[1].record()
-        acc, wacc = dense_apply_nd(my_pos, words, my_c, eta,
-                                   phase.kernel_buckets, P)
+        sums = (dense_apply_nd(my_pos, words, my_c, eta, phase.kernel_buckets,
+                               P) if phase.kernel_buckets else (None, None))
         ev[2].record()
-        iota = torch.arange(S, device=dev)
-        eta_t = torch.full((), eta, dtype=cs.dtype, device=dev)
-        for k, ki in phase.roll_buckets:
-            d1, w1 = _roll_half_nd(my_pos, my_c, eta_t, -k, [
-                (s == ki, torch.roll(s, -k) == ~ki) for s in sidxs], iota)
-            d2, w2 = _roll_half_nd(my_pos, my_c, eta_t, +k, [
-                (s == ~ki, torch.roll(s, k) == ki) for s in sidxs], iota)
-            acc = acc + d1 + d2
-            wacc = wacc + w1 + w2
+        out = roll_apply_nd(my_pos, my_c, lane0, cs, words, eta,
+                            phase.roll_buckets, P, *sums)
         ev[3].record()
-        upd = acc / torch.clamp_min(wacc, 1.0)
-        out = torch.cat([cs[:D] + torch.where(lane0, upd, 0.0),
-                         cs[D:] + torch.where(lane0, 0.0, upd)])
-        ev[4].record()
         return out
 
     def whole(e, cs):
@@ -696,15 +1152,15 @@ def phase_layout_parts(gfa_in, card_line, n_sweeps: int = 12):
     # warm-up, then the parts and the whole sweep on the same sweeps
     cs_a = whole(0, cs)
     cs_b = run_parts(0, cs, [torch.cuda.Event(enable_timing=True)
-                             for _ in range(5)])
+                             for _ in range(4)])
     torch.cuda.synchronize()
     if not torch.equal(cs_a, cs_b):
         raise AssertionError("the timed parts differ from nd_sweep_once")
-    names = ("sampler", "kernel", "roll_passes", "combine")
+    names = ("sampler", "kernel", "roll_combine")
     parts = dict.fromkeys(names, 0.0)
     cs_p = cs
     for e in range(n_sweeps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         cs_p = run_parts(e, cs_p, ev)
         torch.cuda.synchronize()
         for j, name in enumerate(names):
@@ -820,9 +1276,12 @@ def phase_sweep_mode(phase, bench, cert, card_line, dtype, rng):
         want = 0 if dtype == "float64" else plan.n_exec
         if dtype == "float64" and kernel_buckets:
             raise AssertionError(f"{phase}: {kernel_buckets} kernel buckets")
-        if launches["bucket_apply"] != want:
-            raise AssertionError(f"{phase}: {launches['bucket_apply']} bucket "
-                                 f"kernel launches, expected {want}")
+        # threefry draws and f64 run the plain sampler; f32 the kernels
+        for k, n in (("bucket_apply", want), ("roll_apply", want),
+                     ("sweep_sampler", 0)):
+            if launches[k] != n:
+                raise AssertionError(f"{phase}: {launches[k]} {k} launches, "
+                                     f"expected {n}")
         updates = plan.n_sweeps * plan.updates_per_sweep
         say(phase, card_line, part="bench", dtype=dtype, rng=plan.knobs.rng,
             iter_max=SWEEP_MODE_ITER, nodes=bench.num_nodes, steps=bench.total_steps, engine_s=secs,
@@ -1375,7 +1834,8 @@ def phase_e2e(gfa_in, tmp, card_line):
     secs, events, launches, log = cli_step(
         gfa_in, tmp, "e2e", job_argv(E2E_ITER, E2E_LAYOUT_ITER, tsv, "cuda"),
         counts_kept=False)
-    for k in ("bucket_apply", "dense_apply_nd"):
+    for k in ("bucket_apply", "dense_apply_nd", "sweep_sampler",
+              "roll_apply", "roll_apply_nd"):
         if launches[k] <= 0:
             raise AssertionError(f"sYgsuL launched no {k} kernel")
     nodes_in = events[0]["nodes"]
@@ -1468,7 +1928,8 @@ def phase_bench(card_line):
     tag = [line for line in out.stderr.splitlines()
            if line.startswith("LAUNCHES ")]
     launches = json.loads(tag[-1].split(" ", 1)[1])
-    for k in ("bucket_apply", "dense_apply_nd"):
+    for k in ("bucket_apply", "dense_apply_nd", "sweep_sampler",
+              "roll_apply", "roll_apply_nd"):
         if launches[k] <= 0:
             raise AssertionError(f"the bench twin launched no {k} kernel")
     roof = last["roofline"]
@@ -1551,6 +2012,10 @@ def main() -> int:
     kres_nd = phase_kernel_nd(nd_plans, bench.total_steps,
                               bench.step_pos.astype(np.float32), card_line)
     sres, sweep_launches = phase_sweep_apply(bench_plan, bench, card_line)
+    samp = phase_sampler(bench, bench_plan, nd_plans, card_line)
+    rres = phase_roll(bench, bench_plan, nd_plans, card_line)
+    phase_whole_sweep(bench, bench_plan, nd_plans, card_line)
+    phase_sweep_parts(bench, bench_plan, card_line)
     probe = phase_shift_probe(card_line)
     phase_entry(card_line)
 
@@ -1607,6 +2072,32 @@ def main() -> int:
                           "the times are phase 0's at the first eta"),
         shift_entry("global", probe),
         shift_entry("smem", probe),
+        kernel_entry("sweep_sampler",
+                     "gfasort_tpu_torch/csrc/sweep_sampler.cu",
+                     "gfasort_tpu/ops/sweep_common.py:34-85, "
+                     "gfasort_tpu/ops/sweep_common.py:491-566, "
+                     "gfasort_tpu/ops/sweep_common.py:249-269",
+                     launches["sweep_sampler"] + launches_nd["sweep_sampler"],
+                     samp, samp["1d"],
+                     note=f"XLA fusions, no pallas_call; launches: "
+                          f"{launches['sweep_sampler']} in sYgs's Y, "
+                          f"{launches_nd['sweep_sampler']} in the 2D L; the "
+                          f"times are the 1D plan's (phase 0, P = "
+                          f"{samp['1d']['P']}); max_abs_err of int32 words"),
+        kernel_entry("roll_apply", "gfasort_tpu_torch/csrc/roll_apply.cu",
+                     "gfasort_tpu/ops/sweep.py:328-380",
+                     launches["roll_apply"],
+                     {k: v for k, v in rres.items() if k[0] == "1d"},
+                     rres[("1d", 0)],
+                     note="XLA fusion, no pallas_call; the times are plan "
+                          "phase 0's"),
+        kernel_entry("roll_apply_nd", "gfasort_tpu_torch/csrc/roll_apply.cu",
+                     "gfasort_tpu/ops/sweep_nd.py:105-185",
+                     launches_nd["roll_apply_nd"],
+                     {k: v for k, v in rres.items() if k[0] != "1d"},
+                     rres[("2d", 0)],
+                     note="XLA fusion, no pallas_call; the times are the 2D "
+                          "plan's phase 0"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

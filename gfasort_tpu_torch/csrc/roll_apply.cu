@@ -1,0 +1,367 @@
+// Roll passes and combine of the sweep engines, for Hopper (sm_90a).
+//
+// Replaces no Pallas kernel: it is the port's counterpart of the XLA
+// fusions of the roll passes and the combine in gfasort_tpu/ops/
+// sweep.py:328-380 (1D) and of the nD roll passes and the per-end
+// combine in gfasort_tpu/ops/sweep_nd.py:105-185.  The plain PyTorch
+// versions are ops/roll_apply.py::roll_apply_ref / roll_apply_nd_ref.
+// One launch serves every roll bucket of a phase (the offsets above the
+// bucket kernel's KMAX, or all of them without that kernel) and the
+// combine.  For every step t and roll bucket (k, ki) in list order:
+//   the pair (t, t + k): w1 = number of proposals p with my field == ki,
+//     or the field of t + k == ~ki where t + k < S;
+//   the pair (t, t - k): w2 = number of proposals p with my field == ~ki,
+//     or the field of t - k == ki where t >= k;
+// the partner is read at (t +- k) mod S (a roll: the wrap-around is
+// guarded on the partner's field only), and each pair's update is that
+// of the bucket kernels (d = |pos - pos_o|, w = 0 and safe = 1 where
+// d == 0, mu = min(eta / safe, 1), ...).  The sums run as the plain
+// version's: per bucket acc = acc + u1 + u2 and w = w + w1 + w2, from the
+// bucket kernel's sums (or +0).  1D: out = xs + dsum / max(csum, 1).
+// nD: upd = acc / max(wacc, 1), out = [cs[:D] + (lane0 ? upd : 0),
+// cs[D:] + (lane0 ? 0 : upd)].
+//
+// What bounds it on the card: bytes for a few roll buckets (each step
+// reads its own state and, per bucket, the two partners' position, state
+// and choice words, most of them from L2), operations for many (two pair
+// evaluations per bucket, each with an IEEE divide, and in nD a square
+// root and a second divide).
+//
+// Design: one thread per step, the step's own state and fields in
+// registers, the partners read directly at t +- k (no rolled copies).
+// Every pair is evaluated in full, zero weights included, so signed
+// zeros come out as the plain version's.  Every f32 op is an explicit
+// round-to-nearest intrinsic in the plain version's order (and the build
+// passes --fmad=false); the nD rsqrt is 1 / sqrt, both correctly
+// rounded, as the plain version computes it.
+// Left for later: evaluating each pair once (the bucket kernels' pair
+// table does not reach partners k > KMAX away).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxBuckets = 64;
+constexpr int kMaxWords = 4;
+constexpr int kMaxProposals = 4 * kMaxWords;
+constexpr int kMaxDims = 8;                   // ops/sweep_dense.MAX_DIMS
+constexpr int kThreads = 256;
+
+struct RollParams {
+  const float* xs;        // 1D: [S] positions; nD: [D, S] my_c
+  const float* pos;       // [S] (nD: my_pos)
+  const int* words[kMaxWords];
+  const float* acc_in;    // 1D: dsum [S]; nD: acc [D, S]; NULL: +0
+  const float* w_in;      // csum / wacc [S]; NULL: +0
+  const uint8_t* lane0;   // nD: [S]
+  const float* cs;        // nD: [2D, S]
+  float* out;             // 1D: [S]; nD: [2D, S]
+  int S;
+  int proposals;
+  int n_words;
+  int n_buckets;
+  float eta;
+  int k[kMaxBuckets];
+  int ki[kMaxBuckets];
+};
+
+// Signed choice of proposal p: the raw choice (P == 1) or the signed
+// 8-bit field p % 4 of word p / 4.
+template <bool PACKED>
+__device__ __forceinline__ int field(const int (&w)[kMaxWords], int p) {
+  if (!PACKED) return w[0];
+  return static_cast<int>(static_cast<int8_t>((w[p >> 2] >> (8 * (p & 3))) & 0xFF));
+}
+
+// The f32 weight of a pair: the proposals whose own field is `mine`, or,
+// where `guard` holds, whose partner's field is `theirs`.
+template <bool PACKED>
+__device__ __forceinline__ float weight(const int (&wa)[kMaxWords],
+                                        const int (&wb)[kMaxWords], int mine,
+                                        int theirs, bool guard, int proposals) {
+  int n = 0;
+#pragma unroll
+  for (int p = 0; p < kMaxProposals; ++p) {
+    if (p >= proposals) break;
+    n += (field<PACKED>(wa, p) == mine ||
+          (guard && field<PACKED>(wb, p) == theirs)) ? 1 : 0;
+  }
+  return __int2float_rn(n);
+}
+
+template <bool PACKED>
+__device__ __forceinline__ void load_words(const RollParams& prm, long long i,
+                                           int (&w)[kMaxWords]) {
+#pragma unroll
+  for (int j = 0; j < kMaxWords; ++j) {
+    w[j] = j < prm.n_words ? prm.words[j][i] : 0;
+  }
+}
+
+// d, valid weight, safe and mu of a pair, shared by both engines.
+__device__ __forceinline__ void pair_base(float pa, float pb, float weight,
+                                          float eta, float& w, float& safe,
+                                          float& mu) {
+  const float d = fabsf(__fsub_rn(pa, pb));
+  const bool valid = d != 0.0f;
+  w = valid ? weight : 0.0f;
+  safe = valid ? d : 1.0f;
+  mu = fminf(__fdiv_rn(eta, safe), 1.0f);
+}
+
+// The 1D update a receives from the pair (a, b): -w * r_x.
+__device__ __forceinline__ float half_1d(float xa, float pa, float xb,
+                                         float pb, float weight, float eta,
+                                         float& w) {
+  float safe, mu;
+  pair_base(pa, pb, weight, eta, w, safe, mu);
+  float dx = __fsub_rn(xa, xb);
+  dx = dx == 0.0f ? 1e-9f : dx;
+  const float half_sgn = dx >= 0.0f ? 0.5f : -0.5f;
+  const float r = __fmul_rn(__fmul_rn(mu, __fsub_rn(fabsf(dx), safe)), half_sgn);
+  return __fmul_rn(-w, r);
+}
+
+// The nD updates a receives from the pair (a, b): -(w * r) * delta[d].
+template <int D>
+__device__ __forceinline__ void half_nd(float pa, const float (&ca)[D],
+                                        float pb, const float (&cb)[D],
+                                        float weight, float eta, float& w,
+                                        float (&upd)[D]) {
+  float safe, mu;
+  pair_base(pa, pb, weight, eta, w, safe, mu);
+  float delta[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) delta[d] = __fsub_rn(ca[d], cb[d]);
+  float mag2 = __fmul_rn(delta[0], delta[0]);
+#pragma unroll
+  for (int d = 1; d < D; ++d) {
+    mag2 = __fadd_rn(mag2, __fmul_rn(delta[d], delta[d]));
+  }
+  if (mag2 == 0.0f) {
+    delta[0] = 1e-9f;
+    mag2 = 1e-18f;
+  }
+  const float inv = __fdiv_rn(1.0f, __fsqrt_rn(mag2));
+  const float mag = __fmul_rn(mag2, inv);
+  const float r_raw =
+      __fmul_rn(__fmul_rn(__fmul_rn(mu, __fsub_rn(mag, safe)), 0.5f), inv);
+  // a NaN passes through, as in torch.clamp_max
+  const float r = r_raw > 1e30f ? 1e30f : r_raw;
+  const float neg_wr = -__fmul_rn(w, r);
+#pragma unroll
+  for (int d = 0; d < D; ++d) upd[d] = __fmul_rn(neg_wr, delta[d]);
+}
+
+// (t + shift) mod S in [0, S), for t in [0, S); the 64-bit remainder
+// only where the partner wraps around
+__device__ __forceinline__ long long roll_index(long long t, long long shift,
+                                                long long S) {
+  long long j = t + shift;
+  if (j < 0 || j >= S) {
+    j %= S;
+    if (j < 0) j += S;
+  }
+  return j;
+}
+
+template <bool PACKED>
+__global__ void __launch_bounds__(kThreads)
+roll_apply_kernel(const RollParams prm) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long S = prm.S;
+  if (t >= S) return;
+  const float x = prm.xs[t];
+  const float p = prm.pos[t];
+  int mine[kMaxWords];
+  load_words<PACKED>(prm, t, mine);
+  float dsum = prm.acc_in ? prm.acc_in[t] : 0.0f;
+  float csum = prm.w_in ? prm.w_in[t] : 0.0f;
+  for (int b = 0; b < prm.n_buckets; ++b) {
+    const long long k = prm.k[b];
+    const int ki = prm.ki[b];
+    // partner ahead (t + k): I chose +k, or they chose -k
+    long long j = roll_index(t, k, S);
+    int theirs[kMaxWords];
+    load_words<PACKED>(prm, j, theirs);
+    float w1, w2;
+    const float u1 = half_1d(
+        x, p, prm.xs[j], prm.pos[j],
+        weight<PACKED>(mine, theirs, ki, ~ki, t + k < S, prm.proposals),
+        prm.eta, w1);
+    // partner behind (t - k): I chose -k, or they chose +k
+    j = roll_index(t, -k, S);
+    load_words<PACKED>(prm, j, theirs);
+    const float u2 = half_1d(
+        x, p, prm.xs[j], prm.pos[j],
+        weight<PACKED>(mine, theirs, ~ki, ki, t >= k, prm.proposals),
+        prm.eta, w2);
+    dsum = __fadd_rn(__fadd_rn(dsum, u1), u2);
+    csum = __fadd_rn(__fadd_rn(csum, w1), w2);
+  }
+  prm.out[t] = __fadd_rn(x, __fdiv_rn(dsum, csum < 1.0f ? 1.0f : csum));
+}
+
+template <int D, bool PACKED>
+__global__ void __launch_bounds__(kThreads)
+roll_apply_nd_kernel(const RollParams prm) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long S = prm.S;
+  if (t >= S) return;
+  const float p = prm.pos[t];
+  float c[D], acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    c[d] = prm.xs[d * S + t];
+    acc[d] = prm.acc_in ? prm.acc_in[d * S + t] : 0.0f;
+  }
+  int mine[kMaxWords];
+  load_words<PACKED>(prm, t, mine);
+  float wacc = prm.w_in ? prm.w_in[t] : 0.0f;
+  for (int b = 0; b < prm.n_buckets; ++b) {
+    const long long k = prm.k[b];
+    const int ki = prm.ki[b];
+    float co[D], u1[D], u2[D], w1, w2;
+    int theirs[kMaxWords];
+    // partner ahead (t + k): I chose +k, or they chose -k
+    long long j = roll_index(t, k, S);
+    load_words<PACKED>(prm, j, theirs);
+#pragma unroll
+    for (int d = 0; d < D; ++d) co[d] = prm.xs[d * S + j];
+    half_nd<D>(p, c, prm.pos[j], co,
+               weight<PACKED>(mine, theirs, ki, ~ki, t + k < S, prm.proposals),
+               prm.eta, w1, u1);
+    // partner behind (t - k): I chose -k, or they chose +k
+    j = roll_index(t, -k, S);
+    load_words<PACKED>(prm, j, theirs);
+#pragma unroll
+    for (int d = 0; d < D; ++d) co[d] = prm.xs[d * S + j];
+    half_nd<D>(p, c, prm.pos[j], co,
+               weight<PACKED>(mine, theirs, ~ki, ki, t >= k, prm.proposals),
+               prm.eta, w2, u2);
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] = __fadd_rn(__fadd_rn(acc[d], u1[d]), u2[d]);
+    wacc = __fadd_rn(__fadd_rn(wacc, w1), w2);
+  }
+  // the chosen end's rows take the mean update, the other end's + 0
+  const bool lane0 = prm.lane0[t] != 0;
+  const float div = wacc < 1.0f ? 1.0f : wacc;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const float upd = __fdiv_rn(acc[d], div);
+    prm.out[d * S + t] = __fadd_rn(prm.cs[d * S + t], lane0 ? upd : 0.0f);
+    prm.out[(D + d) * S + t] =
+        __fadd_rn(prm.cs[(D + d) * S + t], lane0 ? 0.0f : upd);
+  }
+}
+
+int check_and_fill(RollParams& prm, int device, const float* xs,
+                   const float* pos, const int* w0, const int* w1,
+                   const int* w2, const int* w3, int n_words, int proposals,
+                   int S, float eta, const int* ks, const int* kis,
+                   int n_buckets, const float* acc_in, const float* w_in,
+                   float* out) {
+  if (S <= 0 || n_buckets < 0 || n_buckets > kMaxBuckets || n_words < 1 ||
+      n_words > kMaxWords || proposals < 1 || proposals > kMaxProposals ||
+      (proposals == 1 && n_words != 1) ||
+      (proposals > 1 && n_words != (proposals + 3) / 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int b = 0; b < n_buckets; ++b) {
+    if (ks[b] < 1) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // this library links its own CUDA runtime: select the tensors' device
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  prm.xs = xs;
+  prm.pos = pos;
+  prm.words[0] = w0;
+  prm.words[1] = w1;
+  prm.words[2] = w2;
+  prm.words[3] = w3;
+  prm.acc_in = acc_in;
+  prm.w_in = w_in;
+  prm.lane0 = nullptr;
+  prm.cs = nullptr;
+  prm.out = out;
+  prm.S = S;
+  prm.proposals = proposals;
+  prm.n_words = n_words;
+  prm.n_buckets = n_buckets;
+  prm.eta = eta;
+  for (int b = 0; b < kMaxBuckets; ++b) {
+    prm.k[b] = b < n_buckets ? ks[b] : 0;
+    prm.ki[b] = b < n_buckets ? kis[b] : 0;
+  }
+  return 0;
+}
+
+template <int D>
+void launch_nd(const RollParams& prm, int blocks, cudaStream_t st) {
+  if (prm.proposals == 1) {
+    roll_apply_nd_kernel<D, false><<<blocks, kThreads, 0, st>>>(prm);
+  } else {
+    roll_apply_nd_kernel<D, true><<<blocks, kThreads, 0, st>>>(prm);
+  }
+}
+
+}  // namespace
+
+// C interfaces, bound with ctypes.  Device pointers: xs, pos, w0..w3
+// (n_words of them, the rest NULL), dsum / csum (NULL: +0), out.  Host
+// arrays: ks, kis (n_buckets entries, 0 allowed: the combine alone).
+// Launch on `stream` of device `device`; return cudaGetLastError() as an
+// int (0 = launched).
+extern "C" int gfasort_roll_apply(
+    int device, const float* xs, const float* pos,
+    const int* w0, const int* w1, const int* w2, const int* w3,
+    int n_words, int proposals, int S, float eta,
+    const int* ks, const int* kis, int n_buckets,
+    const float* dsum, const float* csum, float* out, void* stream) {
+  RollParams prm;
+  const int err = check_and_fill(prm, device, xs, pos, w0, w1, w2, w3,
+                                 n_words, proposals, S, eta, ks, kis,
+                                 n_buckets, dsum, csum, out);
+  if (err != 0) return err;
+  const int blocks = (S + kThreads - 1) / kThreads;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (proposals == 1) {
+    roll_apply_kernel<false><<<blocks, kThreads, 0, st>>>(prm);
+  } else {
+    roll_apply_kernel<true><<<blocks, kThreads, 0, st>>>(prm);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The nD twin: my_pos [S], my_c [D, S], lane0 [S] (bytes 0 / 1), cs
+// [2D, S], acc [D, S] / wacc [S] (NULL: +0), out [2D, S]; 1 <= D <= 8.
+extern "C" int gfasort_roll_apply_nd(
+    int device, const float* my_pos, const float* my_c, int D,
+    const unsigned char* lane0, const float* cs,
+    const int* w0, const int* w1, const int* w2, const int* w3,
+    int n_words, int proposals, int S, float eta,
+    const int* ks, const int* kis, int n_buckets,
+    const float* acc, const float* wacc, float* out, void* stream) {
+  if (D < 1 || D > kMaxDims) return static_cast<int>(cudaErrorInvalidValue);
+  RollParams prm;
+  const int err = check_and_fill(prm, device, my_c, my_pos, w0, w1, w2, w3,
+                                 n_words, proposals, S, eta, ks, kis,
+                                 n_buckets, acc, wacc, out);
+  if (err != 0) return err;
+  prm.lane0 = lane0;
+  prm.cs = cs;
+  const int blocks = (S + kThreads - 1) / kThreads;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 1: launch_nd<1>(prm, blocks, st); break;
+    case 2: launch_nd<2>(prm, blocks, st); break;
+    case 3: launch_nd<3>(prm, blocks, st); break;
+    case 4: launch_nd<4>(prm, blocks, st); break;
+    case 5: launch_nd<5>(prm, blocks, st); break;
+    case 6: launch_nd<6>(prm, blocks, st); break;
+    case 7: launch_nd<7>(prm, blocks, st); break;
+    default: launch_nd<8>(prm, blocks, st); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}

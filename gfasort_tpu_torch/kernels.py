@@ -25,7 +25,8 @@ import torch
 __all__ = ["NVCC_FLAGS", "nvcc_path", "build", "ptxas_report", "library",
            "bind_entry",
            "bucket_apply_cuda", "dense_apply_nd_cuda", "sweep_apply_cuda",
-           "shift_sum_cuda"]
+           "shift_sum_cuda", "sweep_sampler_cuda", "roll_apply_cuda",
+           "roll_apply_nd_cuda"]
 
 _HERE = pathlib.Path(__file__).parent
 _CSRC = _HERE / "csrc"
@@ -136,6 +137,7 @@ def ptxas_report(log: str) -> list:
 
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _IP = ctypes.POINTER(_CI)
+_UP = ctypes.POINTER(ctypes.c_uint)
 # the C entry points of csrc/*.cu and their ctypes argument types
 _ARGTYPES = {
     "gfasort_bucket_apply": [_CI, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI,
@@ -145,6 +147,14 @@ _ARGTYPES = {
     "gfasort_sweep_apply": [_CI, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CF, _IP,
                             _CI, _VP, _VP],
     "gfasort_shift_sum": [_CI, _VP, _VP, _CI, _CI, _CI, _VP],
+    "gfasort_sweep_sampler": [_CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP, _VP,
+                              _CI, _CI, _CI, _CI, _CI, _CI, _UP, _UP,
+                              _VP, _VP, _VP, _VP, _VP, _VP],
+    "gfasort_roll_apply": [_CI, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI,
+                           _CF, _IP, _IP, _CI, _VP, _VP, _VP, _VP],
+    "gfasort_roll_apply_nd": [_CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP, _VP,
+                              _VP, _CI, _CI, _CI, _CF, _IP, _IP, _CI, _VP,
+                              _VP, _VP, _VP],
 }
 
 
@@ -167,6 +177,18 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def _word_ptrs(words):
+    """The choice words' device pointers, NULL-padded to four."""
+    return [w.data_ptr() for w in words] + [None] * (4 - len(words))
+
+
+def _bucket_arrays(buckets):
+    """(ks, kis, n) of a bucket list, as the C entry points take them."""
+    nb = len(buckets)
+    return ((ctypes.c_int * nb)(*[k for k, _ in buckets]),
+            (ctypes.c_int * nb)(*[ki for _, ki in buckets]), nb)
+
+
 def bucket_apply_cuda(xs, pos, words, eta: float, buckets, proposals: int,
                       entry=None):
     """Launch the bucket-apply kernel on the current stream.  Inputs are
@@ -177,14 +199,11 @@ def bucket_apply_cuda(xs, pos, words, eta: float, buckets, proposals: int,
     S = xs.shape[0]
     dsum = torch.empty_like(xs)
     csum = torch.empty_like(xs)
-    nb = len(buckets)
-    ks = (ctypes.c_int * nb)(*[k for k, _ in buckets])
-    kis = (ctypes.c_int * nb)(*[ki for _, ki in buckets])
-    wptr = [w.data_ptr() for w in words] + [None] * (4 - len(words))
+    ks, kis, nb = _bucket_arrays(buckets)
     stream = torch.cuda.current_stream(xs.device).cuda_stream
     err = entry(
-        xs.device.index, xs.data_ptr(), pos.data_ptr(), *wptr, len(words),
-        proposals, S, float(eta), ks, kis, nb, dsum.data_ptr(),
+        xs.device.index, xs.data_ptr(), pos.data_ptr(), *_word_ptrs(words),
+        len(words), proposals, S, float(eta), ks, kis, nb, dsum.data_ptr(),
         csum.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"bucket_apply kernel launch failed: CUDA error {err}")
@@ -200,15 +219,12 @@ def dense_apply_nd_cuda(my_pos, words, my_c, eta: float, buckets,
     D, S = my_c.shape
     acc = torch.empty_like(my_c)
     wacc = torch.empty_like(my_pos)
-    nb = len(buckets)
-    ks = (ctypes.c_int * nb)(*[k for k, _ in buckets])
-    kis = (ctypes.c_int * nb)(*[ki for _, ki in buckets])
-    wptr = [w.data_ptr() for w in words] + [None] * (4 - len(words))
+    ks, kis, nb = _bucket_arrays(buckets)
     stream = torch.cuda.current_stream(my_pos.device).cuda_stream
     err = entry(
-        my_pos.device.index, my_pos.data_ptr(), my_c.data_ptr(), D, *wptr,
-        len(words), proposals, S, float(eta), ks, kis, nb, acc.data_ptr(),
-        wacc.data_ptr(), stream)
+        my_pos.device.index, my_pos.data_ptr(), my_c.data_ptr(), D,
+        *_word_ptrs(words), len(words), proposals, S, float(eta), ks, kis, nb,
+        acc.data_ptr(), wacc.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"dense_apply_nd kernel launch failed: CUDA error {err}")
@@ -246,4 +262,79 @@ def shift_sum_cuda(x, halo: int, variant: str):
         1 if variant == "smem" else 0, stream)
     if err != 0:
         raise RuntimeError(f"shift_sum kernel launch failed: CUDA error {err}")
+    return out
+
+
+
+def sweep_sampler_cuda(consts, key_words, cooling: bool, rank, cnt,
+                       active_frac: float, snap: str, coin: bool):
+    """Launch the per-sweep sampler kernel on the current stream: (the
+    choice words, the end coin or None).  Inputs are validated by the
+    caller (``ops/sweep_common.sample_words``); ``consts`` is the
+    phase's ``SamplerConsts`` on the same device."""
+    lib = library()
+    S = rank.shape[0]
+    P = len(key_words)
+    n_words = 1 if P == 1 else -(-P // 4)
+    words = [torch.empty(S, dtype=torch.int32, device=rank.device)
+             for _ in range(n_words)]
+    end_coin = (torch.empty(S, dtype=torch.bool, device=rank.device)
+                if coin else None)
+    b2 = (ctypes.c_uint * P)(*[int(w[0]) for w in key_words])
+    b1 = (ctypes.c_uint * P)(*[int(w[1]) for w in key_words])
+    # the activity coin as sample_blocks draws it; -1: every proposal on
+    thresh = int(active_frac * (1 << 20)) if active_frac < 1.0 else -1
+    stream = torch.cuda.current_stream(rank.device).cuda_stream
+    err = lib.gfasort_sweep_sampler(
+        rank.device.index, rank.data_ptr(), cnt.data_ptr(), S,
+        consts.offs.data_ptr(), consts.zeta.data_ptr(),
+        consts.eta_z.data_ptr(), consts.zeta2theta.data_ptr(),
+        consts.alpha.data_ptr(), consts.offs.shape[0], int(consts.space),
+        int(bool(cooling)), thresh, int(snap == "down"), P, b2, b1,
+        *_word_ptrs(words),
+        end_coin.data_ptr() if end_coin is not None else None, stream)
+    if err != 0:
+        raise RuntimeError(f"sweep_sampler kernel launch failed: CUDA error {err}")
+    return words, end_coin
+
+
+
+def roll_apply_cuda(xs, pos, words, eta: float, buckets, proposals: int,
+                    dsum, csum):
+    """Launch the 1D roll-pass-and-combine kernel on the current stream:
+    the new xs.  Inputs are validated by the caller
+    (``ops/roll_apply.roll_apply``); ``dsum``/``csum`` may be None (+0)."""
+    lib = library()
+    out = torch.empty_like(xs)
+    ks, kis, nb = _bucket_arrays(buckets)
+    stream = torch.cuda.current_stream(xs.device).cuda_stream
+    err = lib.gfasort_roll_apply(
+        xs.device.index, xs.data_ptr(), pos.data_ptr(), *_word_ptrs(words),
+        len(words), proposals, xs.shape[0], float(eta), ks, kis, nb,
+        dsum.data_ptr() if dsum is not None else None,
+        csum.data_ptr() if csum is not None else None, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"roll_apply kernel launch failed: CUDA error {err}")
+    return out
+
+
+def roll_apply_nd_cuda(my_pos, my_c, lane0, cs, words, eta: float, buckets,
+                       proposals: int, acc, wacc):
+    """Launch the nD roll-pass-and-combine kernel on the current stream:
+    the new cs [2D, S].  Inputs are validated by the caller
+    (``ops/roll_apply.roll_apply_nd``); ``acc``/``wacc`` may be None
+    (+0)."""
+    lib = library()
+    D, S = my_c.shape
+    out = torch.empty_like(cs)
+    ks, kis, nb = _bucket_arrays(buckets)
+    stream = torch.cuda.current_stream(my_pos.device).cuda_stream
+    err = lib.gfasort_roll_apply_nd(
+        my_pos.device.index, my_pos.data_ptr(), my_c.data_ptr(), D,
+        lane0.data_ptr(), cs.data_ptr(), *_word_ptrs(words), len(words),
+        proposals, S, float(eta), ks, kis, nb,
+        acc.data_ptr() if acc is not None else None,
+        wacc.data_ptr() if wacc is not None else None, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"roll_apply_nd kernel launch failed: CUDA error {err}")
     return out

@@ -3,9 +3,11 @@
 Counterpart of ``gfasort_tpu/ops/sweep.py`` (same signatures and return
 contracts, plus ``device=``).  State lives in step space: ``xs[s]`` is
 the position of step ``s``.  One sweep draws P partner proposals per
-step (``sweep_common.sample_blocks``), applies the pair updates of every
-bucket with k <= KMAX in one bucket-apply kernel launch, the larger
-offsets by roll passes, and combines ``xs + dsum / max(csum, 1)``.
+step and packs them (``sweep_common.sample_words``: one sampler kernel
+launch), applies the pair updates of every bucket with k <= KMAX in one
+bucket-apply kernel launch, and the larger offsets and the combine
+``xs + dsum / max(csum, 1)`` in one roll kernel launch
+(``roll_apply.roll_apply``).
 Every ``consensus_every`` sweeps the node consensus averages the steps
 of each node.  The schedule runs eagerly from Python.  The JAX engine's
 dk tables were a TPU workaround that changes no result, and are not
@@ -13,9 +15,9 @@ ported.  Its dispatch chunking is not ported either, but it does change
 results: the JAX engine executes whole dispatches of consensus periods,
 so where the chunk does not divide the periods it runs more sweeps (at
 the terminal eta) and more consensus runs.  The plan reproduces that
-count (``SweepPlan.n_exec``).  At float64 every bucket runs as a roll
-pass, the sampler draws threefry bits and works in f64, and the
-consensus sums in f64, as in the JAX engine.
+count (``SweepPlan.n_exec``).  At float64 every bucket runs as a
+plain roll pass, the plain sampler draws threefry bits and works in f64,
+and the consensus sums in f64, as in the JAX engine.
 
 ``build_applied_counter`` replays the sampler of a schedule, with the
 engine's keys, and counts the pair updates the engine applies.
@@ -36,8 +38,10 @@ from ..params import PathSGDParams
 from . import runner_cache
 from .keys import key_data, sweep_key_table
 from .node_sum import JAX_ROW_RUN, build_gather_consensus
-from .sweep_common import (INACTIVE, SamplerConsts, pack_choices_words,
-                           sample_blocks, sampler_consts, sweep_rng)
+from .roll_apply import roll_apply, roll_apply_ref
+from .sweep_common import (INACTIVE, SamplerConsts, sample_blocks,
+                           sample_words, sample_words_ref, sampler_consts,
+                           sweep_rng)
 from .sweep_dense import bucket_apply
 from .sweep_plan import PhasePlan, make_sweep_plan, torch_dtype
 from .sweep_policy import SweepResult
@@ -46,71 +50,42 @@ __all__ = ["apply_choices", "build_applied_counter", "build_sweep_runner",
            "path_linear_sgd_sweep", "path_sgd_sort_sweep", "sweep_once"]
 
 
-def _roll_half(xs, pos, eta_t, shift: int, pairs, iota):
-    """Contribution received at each step from the pair (t, t + shift)
-    for an offset above KMAX.  ``pairs``: per proposal, (my mask, the
-    rolled partner mask); the wrap-around of the roll is guarded on the
-    partner mask only — my own choice is in-path by construction."""
-    S = xs.shape[0]
-    xs_o = torch.roll(xs, shift)
-    guard = iota < S + shift if shift < 0 else iota >= shift
-    w = None
-    for w_mine, w_theirs in pairs:
-        wb = (w_mine | (w_theirs & guard)).to(xs.dtype)
-        w = wb if w is None else w + wb
-    d = torch.abs(pos - torch.roll(pos, shift))
-    valid = d != 0
-    w = torch.where(valid, w, 0.0)
-    safe = torch.where(valid, d, 1.0)
-    mu = torch.clamp_max(eta_t / safe, 1.0)
-    dx = xs - xs_o
-    dx = torch.where(dx == 0, 1e-9, dx)
-    mag = torch.abs(dx)
-    half_sgn = torch.where(dx >= 0, 0.5, -0.5).to(xs.dtype)
-    r_x = mu * (mag - safe) * half_sgn
-    return -w * r_x, w
-
-
 def sweep_once(xs, pos, rank, cnt, phase: PhasePlan, consts: SamplerConsts,
                key_words, eta: float, cooling: bool, proposals: int,
                active_frac: float, snap: str = "stoch", rng: str = "hash"):
     """One sweep; returns the new xs.  ``consts``: the phase's sampler
     constants for ``cooling``; ``key_words``: the sweep's ``(b2, b1)``
     words per proposal (a row of ``sweep_key_table``); ``rng``: the
-    ``sweep_rng`` mode."""
-    S = xs.shape[0]
-    draws = (sweep_rng(w, S, xs.device, rng, xs.dtype) for w in key_words)
-    sidxs = sample_blocks(consts, draws, cooling, rank, cnt, active_frac, snap)
-    return apply_choices(xs, pos, sidxs, phase, eta, proposals)
+    ``sweep_rng`` mode.
+
+    The hash route at f32 draws its words with ``sample_words`` (the
+    sampler kernel on the card).  The threefry draws and the f64 route
+    are other configurations, chosen by the plan's knobs and dtype: they
+    run the plain sampler (``sample_words_ref``), and f64 also the plain
+    roll passes, as no kernel serves f64."""
+    if rng == "hash" and xs.dtype == torch.float32:
+        words, _ = sample_words(consts, key_words, cooling, rank, cnt,
+                                active_frac, snap)
+    else:
+        words, _ = sample_words_ref(consts, key_words, cooling, rank, cnt,
+                                    active_frac, snap, rng)
+    return apply_choices(xs, pos, words, phase, eta, proposals)
 
 
-def apply_choices(xs, pos, sidxs, phase: PhasePlan, eta: float,
+def apply_choices(xs, pos, words, phase: PhasePlan, eta: float,
                   proposals: int):
-    """The pair updates of one sweep for the given choice arrays (one
-    int32 [S] per proposal) and the combine; returns the new xs.  The
-    bucket-apply kernel serves the phase's buckets with k <= KMAX, roll
-    passes the rest."""
-    S = xs.shape[0]
+    """The pair updates of one sweep for the given choice words (the raw
+    int32 [S] choices for one proposal, else the packed words of
+    ``sweep_common.pack_words``) and the combine; returns the new xs.
+    The bucket-apply kernel serves the phase's buckets with k <= KMAX,
+    the roll kernel the rest and the combine."""
+    dsum = csum = None
     if phase.kernel_buckets:
-        words = sidxs[:1] if proposals == 1 else pack_choices_words(sidxs)
         dsum, csum = bucket_apply(xs, pos, words, eta, phase.kernel_buckets,
                                   proposals)
-    else:
-        dsum = torch.zeros_like(xs)
-        csum = torch.zeros_like(xs)
-    if phase.roll_buckets:
-        iota = torch.arange(S, device=xs.device)
-        eta_t = torch.full((), eta, dtype=xs.dtype, device=xs.device)
-        for k, ki in phase.roll_buckets:
-            # partner ahead (t+k): I chose +k, or they chose -k
-            d1, w1 = _roll_half(xs, pos, eta_t, -k, [
-                (s == ki, torch.roll(s, -k) == ~ki) for s in sidxs], iota)
-            # partner behind (t-k): I chose -k, or they chose +k
-            d2, w2 = _roll_half(xs, pos, eta_t, +k, [
-                (s == ~ki, torch.roll(s, k) == ki) for s in sidxs], iota)
-            dsum = dsum + d1 + d2
-            csum = csum + w1 + w2
-    return xs + dsum / torch.clamp_min(csum, 1.0)
+    roll = roll_apply if xs.dtype == torch.float32 else roll_apply_ref
+    return roll(xs, pos, words, eta, phase.roll_buckets, proposals, dsum,
+                csum)
 
 
 def build_sweep_runner(

@@ -7,7 +7,11 @@ and always in f64), the P-proposal sampler (``sample_blocks``, the
 shared-chain form that the JAX tests hold bit-identical to P
 single-proposal calls; its Zipf maths runs in the run's dtype, f32 or
 f64) and the 8-bit choice packing.  The JAX code is XLA, not a Pallas
-kernel, so plain tensor code is its port.
+kernel: XLA fuses the few hundred u32/f32 ops per proposal.  The port's
+counterpart of that fusion is :func:`sample_words`, which launches the
+hand-written kernel ``csrc/sweep_sampler.cu`` on a CUDA tensor (hash
+draws, f32) and runs :func:`sample_words_ref`, the composition of the
+plain functions here, on a CPU tensor.
 
 Unsigned 32-bit arithmetic runs in int64 masked to 32 bits: torch's
 uint32 supports few ops, and a right shift of an int32 is arithmetic.
@@ -15,6 +19,7 @@ uint32 supports few ops, and a right shift of an int32 is arithmetic.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 
 import torch
@@ -27,8 +32,9 @@ from .sweep_plan import PhasePlan
 
 __all__ = ["INACTIVE", "INACTIVE8", "PACKED_INACTIVE", "sweep_rng",
            "SamplerConsts", "sampler_consts", "snap_idx_track", "zipf_core",
-           "sample_blocks",
-           "pack_choices", "pack_choices_words", "unpack_choice"]
+           "sample_blocks", "sample_words", "sample_words_ref",
+           "pack_choices", "pack_choices_words", "pack_words",
+           "unpack_choice"]
 
 # Sentinel "no partner chosen" value of a choice array, as in the JAX
 # package (i32, positive, far above any bucket index; ~INACTIVE is far
@@ -237,3 +243,79 @@ def unpack_choice(packed: torch.Tensor, p: int) -> torch.Tensor:
     """Signed 8-bit field p of a packed int32 array."""
     field = (packed >> (8 * p)) & 0xFF
     return torch.where(field >= 128, field - 256, field)
+
+
+def pack_words(sidxs) -> list:
+    """The choice words the bucket and roll kernels read: the raw choice
+    array for one proposal, else :func:`pack_choices_words`."""
+    return list(sidxs[:1]) if len(sidxs) == 1 else pack_choices_words(sidxs)
+
+
+def sample_words_ref(consts: SamplerConsts, key_words, cooling: bool,
+                     rank: torch.Tensor, cnt: torch.Tensor,
+                     active_frac: float, snap: str = "stoch",
+                     rng: str = "hash", coin: bool = False):
+    """Plain PyTorch version of :func:`sample_words`: ``sweep_rng`` ->
+    :func:`sample_blocks` -> :func:`pack_words`, in the dtype of
+    ``consts`` (the threefry draws under ``rng="threefry"`` and at
+    f64).  Returns (words, proposal 0's end coin as bool [S] or None)."""
+    S = rank.shape[0]
+    dtype = consts.zeta.dtype
+    first = sweep_rng(key_words[0], S, rank.device, rng, dtype)
+    end_coin = ((first[0] >> 29) & 1) == 1 if coin else None
+    rest = (sweep_rng(w, S, rank.device, rng, dtype) for w in key_words[1:])
+    sidxs = sample_blocks(consts, itertools.chain([first], rest), cooling,
+                          rank, cnt, active_frac, snap)
+    return pack_words(sidxs), end_coin
+
+
+def sample_words(consts: SamplerConsts, key_words, cooling: bool,
+                 rank: torch.Tensor, cnt: torch.Tensor, active_frac: float,
+                 snap: str = "stoch", coin: bool = False):
+    """One sweep's choice words from its hash draws: P = len(key_words)
+    proposals, each from its ``(b2, b1)`` words (a row of
+    ``keys.sweep_key_table``), in f32.  Returns (words, end coin):
+    ceil(P/4) packed int32 [S] words (the raw int32 choices for P = 1),
+    and with ``coin`` proposal 0's ``(bits >> 29) & 1`` as bool [S] (the
+    nD engine's end coin), else None.
+
+    CUDA tensors launch ``csrc/sweep_sampler.cu`` and count one launch in
+    ``sample_words.launches``; CPU tensors run :func:`sample_words_ref`.
+    The threefry and f64 routes draw other bits and are not served
+    here: they call :func:`sample_words_ref` themselves."""
+    if snap not in ("stoch", "down"):
+        raise ValueError(f"unknown snap mode {snap!r}")
+    P = len(key_words)
+    if not 1 <= P <= 16:
+        raise ValueError(f"1 to 16 proposals, got {P}")
+    S = rank.shape[0]
+    for name, t in (("rank", rank), ("cnt", cnt)):
+        if t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] != S:
+            raise ValueError(f"{name} must be int32 [{S}], got {t.dtype} "
+                             f"{list(t.shape)}")
+        if t.device != rank.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {rank.device}")
+    if consts.zeta.dtype != torch.float32:
+        raise ValueError("sample_words draws hash bits in float32; the "
+                         "float64 route calls sample_words_ref")
+    if rank.device.type == "cpu":
+        return sample_words_ref(consts, key_words, cooling, rank, cnt,
+                                active_frac, snap, "hash", coin)
+    if rank.device.type != "cuda":
+        raise ValueError(f"sample_words runs on cpu or cuda, not {rank.device}")
+    if S >= 1 << 31:
+        raise ValueError(f"{S} steps exceed the kernel's int32 indexing")
+    if not 1 <= consts.offs.shape[0] <= 64:
+        raise ValueError(f"1 to 64 offsets, got {consts.offs.shape[0]}")
+    if consts.offs.device != rank.device:
+        raise ValueError(f"the sampler constants lie on {consts.offs.device}, "
+                         f"the steps on {rank.device}")
+    from ..kernels import sweep_sampler_cuda
+
+    out = sweep_sampler_cuda(consts, key_words, cooling, rank, cnt,
+                             active_frac, snap, coin)
+    sample_words.launches += 1
+    return out
+
+
+sample_words.launches = 0

@@ -4,21 +4,21 @@ Counterpart of ``gfasort_tpu/ops/sweep_nd.py`` (same signatures and
 return contracts, plus ``device=``).  State is the per-step, per-end
 coordinate block ``cs [2D, S]``: row ``e*D + d`` holds end ``e``'s
 dimension ``d`` (end 0 = '+', 1 = '-').  One sweep draws P partner
-proposals per step, takes a per-step end coin from proposal 0's bits,
-applies the Euclidean pair updates of every bucket with k <= KMAX in one
-nD bucket-apply kernel launch and the larger offsets by roll passes, and
-moves the chosen end's rows by ``acc / max(wacc, 1)``.  Every
+proposals per step and its end coin from proposal 0's bits (one
+sampler kernel launch), applies the Euclidean pair updates of every
+bucket with k <= KMAX in one nD bucket-apply kernel launch, and the
+larger offsets and the move of the chosen end's rows by
+``acc / max(wacc, 1)`` in one roll kernel launch.  Every
 ``consensus_every`` sweeps the node consensus averages each (node, end,
 dimension) row.  The schedule runs eagerly from Python, as in the 1D
 engine, executing the sweeps the JAX engine's dispatch chunking
 executes (``SweepPlan.n_exec``); its runner cache is not ported.  At
-float64 every bucket runs as a roll pass and the sampler draws threefry
-bits, as in the JAX engine.
+float64 every bucket runs as a plain roll pass and the plain sampler
+draws threefry bits, as in the JAX engine.
 """
 
 from __future__ import annotations
 
-import itertools
 from typing import Optional
 
 import numpy as np
@@ -33,45 +33,25 @@ from ..params import LayoutSGDParams
 from . import runner_cache
 from .keys import key_data, sweep_key_table
 from .node_sum import build_gather_consensus
-from .sweep_common import (SamplerConsts, pack_choices_words, sample_blocks,
-                           sampler_consts, sweep_rng)
-from .sweep_dense import dense_apply_nd, sqrt_rn
+from .roll_apply import roll_apply_nd, roll_apply_nd_ref
+from .sweep_common import (SamplerConsts, sample_words, sample_words_ref,
+                           sampler_consts)
+from .sweep_dense import dense_apply_nd
 from .sweep_plan import PhasePlan, make_layout_plan, torch_dtype
 
-__all__ = ["build_sweep_nd_runner", "nd_sweep_once",
+__all__ = ["build_sweep_nd_runner", "chosen_ends", "nd_sweep_once",
            "path_linear_sgd_layout_sweep"]
 
 
-def _roll_half_nd(my_pos, my_c, eta_t, shift: int, pairs, iota):
-    """(acc [D, S], w [S]) received at each step from the pair
-    (t, t + shift) for an offset above KMAX; the nD twin of the 1D
-    engine's ``_roll_half`` (the wrap-around of the roll is guarded on
-    the partner mask only)."""
-    S = my_pos.shape[0]
-    pos_o = torch.roll(my_pos, shift)
-    c_o = torch.roll(my_c, shift, dims=1)
-    guard = iota < S + shift if shift < 0 else iota >= shift
-    w = None
-    for w_mine, w_theirs in pairs:
-        wb = (w_mine | (w_theirs & guard)).to(my_pos.dtype)
-        w = wb if w is None else w + wb
-    d = torch.abs(my_pos - pos_o)
-    valid = d != 0
-    w = torch.where(valid, w, 0.0)
-    safe = torch.where(valid, d, 1.0)
-    mu = torch.clamp_max(eta_t / safe, 1.0)
-    deltas = my_c - c_o
-    mag_sq = deltas[0] * deltas[0]
-    for dim in range(1, my_c.shape[0]):
-        mag_sq = mag_sq + deltas[dim] * deltas[dim]
-    zero = mag_sq == 0
-    deltas[0] = torch.where(zero, 1e-9, deltas[0])
-    mag_sq = torch.where(zero, 1e-18, mag_sq)
-    # 1 / sqrt for the JAX rsqrt, as in ops/sweep_dense.dense_apply_nd_ref
-    inv = 1.0 / sqrt_rn(mag_sq)
-    mag = mag_sq * inv
-    r = torch.clamp_max(mu * (mag - safe) * 0.5 * inv, 1e30)
-    return -(w * r) * deltas, w
+def chosen_ends(cs, pos, length, rev, other_end):
+    """(my_pos [S], lane0 bool [S], my_c [D, S]) of each step's chosen
+    end.  ``other_end`` is the per-step end coin (proposal 0's bits): the
+    other end moves the step's path position by its node's length, and
+    the end index is coin XOR orientation."""
+    D = cs.shape[0] // 2
+    my_pos = torch.where(other_end, pos + length, pos)
+    lane0 = torch.where(other_end, 1 - rev, rev) == 0
+    return my_pos, lane0, torch.where(lane0, cs[:D], cs[D:])
 
 
 def nd_sweep_once(cs, pos, rank, cnt, rev, length, phase: PhasePlan,
@@ -82,46 +62,24 @@ def nd_sweep_once(cs, pos, rank, cnt, rev, length, phase: PhasePlan,
     phase's sampler constants for ``cooling``; ``key_words``: the
     sweep's ``(b2, b1)`` words per proposal (a row of
     ``sweep_key_table``); ``snap``/``rng``: the sampler's snap and the
-    ``sweep_rng`` mode."""
-    S = pos.shape[0]
-    D = cs.shape[0] // 2
-    first = sweep_rng(key_words[0], S, cs.device, rng, cs.dtype)
-    rest = (sweep_rng(w, S, cs.device, rng, cs.dtype) for w in key_words[1:])
-    sidxs = sample_blocks(consts, itertools.chain([first], rest), cooling,
-                          rank, cnt, active_frac, snap)
-    # the per-step end coin, from proposal 0's bits: the other end moves
-    # the step's path position by its node's length, and the end index
-    # is coin XOR orientation
-    other_end = ((first[0] >> 29) & 1) == 1
-    del first
-    my_pos = torch.where(other_end, pos + length, pos)
-    lane0 = torch.where(other_end, 1 - rev, rev) == 0
-    my_c = torch.where(lane0, cs[:D], cs[D:])
-
+    ``sweep_rng`` mode.  As in the 1D ``sweep_once``, the hash route at
+    f32 runs the sampler kernel and the threefry / f64 routes the plain
+    sampler; f64 also the plain roll passes."""
+    if rng == "hash" and cs.dtype == torch.float32:
+        words, other_end = sample_words(consts, key_words, cooling, rank, cnt,
+                                        active_frac, snap, coin=True)
+    else:
+        words, other_end = sample_words_ref(consts, key_words, cooling, rank,
+                                            cnt, active_frac, snap, rng,
+                                            coin=True)
+    my_pos, lane0, my_c = chosen_ends(cs, pos, length, rev, other_end)
+    acc = wacc = None
     if phase.kernel_buckets:
-        words = sidxs[:1] if proposals == 1 else pack_choices_words(sidxs)
         acc, wacc = dense_apply_nd(my_pos, words, my_c, eta,
                                    phase.kernel_buckets, proposals)
-    else:
-        acc = torch.zeros_like(my_c)
-        wacc = torch.zeros_like(my_pos)
-    if phase.roll_buckets:
-        iota = torch.arange(S, device=cs.device)
-        eta_t = torch.full((), eta, dtype=cs.dtype, device=cs.device)
-        for k, ki in phase.roll_buckets:
-            # partner ahead (t+k): I chose +k, or they chose -k
-            d1, w1 = _roll_half_nd(my_pos, my_c, eta_t, -k, [
-                (s == ki, torch.roll(s, -k) == ~ki) for s in sidxs], iota)
-            # partner behind (t-k): I chose -k, or they chose +k
-            d2, w2 = _roll_half_nd(my_pos, my_c, eta_t, +k, [
-                (s == ~ki, torch.roll(s, k) == ki) for s in sidxs], iota)
-            acc = acc + d1 + d2
-            wacc = wacc + w1 + w2
-    # the chosen end is fixed for the whole sweep: its rows take the
-    # mean update, the other end's rows are unchanged
-    upd = acc / torch.clamp_min(wacc, 1.0)
-    return torch.cat([cs[:D] + torch.where(lane0, upd, 0.0),
-                      cs[D:] + torch.where(lane0, 0.0, upd)])
+    roll = roll_apply_nd if cs.dtype == torch.float32 else roll_apply_nd_ref
+    return roll(my_pos, my_c, lane0, cs, words, eta, phase.roll_buckets,
+                proposals, acc, wacc)
 
 
 def build_sweep_nd_runner(

@@ -1,5 +1,6 @@
 """The port on an NVIDIA GPU: the hand-written kernels (the 1D and nD
-bucket apply, the fused sweep apply, the two shift sums) against their
+bucket apply, the fused sweep apply, the two shift sums, the sweep
+sampler, the 1D and nD roll passes with the combine) against their
 plain versions, and the sweep engines on CUDA against the same code on
 the CPU.  Every test needs a GPU (the CUDA
 kernels have no CPU mode) and skips without one.  The file imports
@@ -684,3 +685,113 @@ def test_bench_sweep_1d_on_cuda(cuda):
         k: v for k, v in ref.items() if k not in timed}
     assert got["final_finite"] and got["seconds"] > 0
     assert got["updates_per_s"] == got["updates"] / got["seconds"]
+
+
+# ---- the sampler and the roll passes with the combine ----------------------
+
+SAMPLER_CASES = [(P, cooling, frac, snap)
+                 for P in (12, 8, 4, 1) for cooling in (False, True)
+                 for frac in (1.0, 0.6) for snap in ("stoch", "down")]
+
+
+@pytest.fixture(scope="module")
+def sampler_workload():
+    pidx = synthetic_path_index(20_000, 4, 20_000, seed=11)
+    p = replace(PathSGDParams().derive_from_graph(pidx), dtype="float32")
+    return pidx, p
+
+
+@pytest.mark.parametrize("P,cooling,frac,snap", SAMPLER_CASES)
+def test_sweep_sampler_kernel_matches_plain_version(cuda, sampler_workload, P,
+                                                    cooling, frac, snap):
+    """The sampler kernel's words and end coin against the plain
+    version's on the card, for plan phases 0 and 1: bit for bit."""
+    pidx, p = sampler_workload
+    plan = make_sweep_plan(pidx, p, per_octave=2, dense_upto=4, rotate=4,
+                           proposals=P, active_frac=1.0)
+    rank = torch.from_numpy(pidx.step_rank.astype(np.int32)).to(cuda)
+    cnt = torch.from_numpy(pidx.step_count_of_step.astype(np.int32)).to(cuda)
+    key_words = fold_in(key_data(7), np.arange(P))
+    for phase in plan.phases[:2]:
+        consts = sc.sampler_consts(phase, cooling, cuda)
+        before = sc.sample_words.launches
+        words, coin = sc.sample_words(consts, key_words, cooling, rank, cnt,
+                                      frac, snap, coin=True)
+        ref, ref_coin = sc.sample_words_ref(consts, key_words, cooling, rank,
+                                            cnt, frac, snap, coin=True)
+        torch.cuda.synchronize()
+        assert sc.sample_words.launches == before + 1
+        assert len(words) == len(ref) == (1 if P == 1 else -(-P // 4))
+        for w, r in zip(words, ref):
+            assert w.device.type == "cuda" and w.dtype == torch.int32
+            assert torch.equal(w, r)
+        assert torch.equal(coin, ref_coin)
+
+
+def _roll_case(rng, S, buckets, P, D=None):
+    """Random state with repeated positions and coordinates (the zero
+    guards) and choices with no contract (the wrap-around guard)."""
+    kis = [ki for _, ki in buckets]
+    pool = np.array(kis + [~ki for ki in kis] + [int(sc.INACTIVE), 3, ~2],
+                    np.int32)
+    words = sc.pack_words([torch.from_numpy(pool[rng.integers(0, len(pool), S)])
+                           for _ in range(P)])
+    pos = torch.from_numpy(np.cumsum(rng.integers(0, 3, S)).astype(np.float32))
+    if D is None:
+        xs = (rng.standard_normal(S) * 100).astype(np.float32)
+        xs[rng.integers(0, S, S // 8)] = 5.0
+        return torch.from_numpy(xs), pos, words
+    cs = (rng.standard_normal((2 * D, S)) * 50).astype(np.float32)
+    cs[:, rng.integers(0, S, S // 8)] = 2.0
+    return torch.from_numpy(cs), pos, words
+
+
+ROLL_CASES = {
+    # (S, kernel buckets, roll buckets, P)
+    "p12_far": (70_001, PHASE, [(1449, 12), (2896, 13), (8192, 14)], 12),
+    "p1_far": (70_001, PHASE, [(1449, 12), (8192, 14)], 1),
+    "p8_no_kernel": (30_000, [], PHASE + [(2048, 12)], 8),
+    # an offset past the array (k mod S) and one past the tile
+    "p4_wrap": (3_000, [(1, 0)], [(1500, 9), (3_007, 10)], 4),
+    "p12_combine_only": (5_000, PHASE, [], 12),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROLL_CASES))
+def test_roll_apply_kernel_matches_plain_version(cuda, case):
+    from gfasort_tpu_torch.ops.roll_apply import (roll_apply, roll_apply_nd,
+                                                  roll_apply_nd_ref,
+                                                  roll_apply_ref)
+
+    S, kb, rb, P = ROLL_CASES[case]
+    rng = np.random.default_rng(S + P)
+    eta = 0.37
+    # 1D
+    xs, pos, words = _roll_case(rng, S, kb + rb, P)
+    xs, pos, words = xs.to(cuda), pos.to(cuda), [w.to(cuda) for w in words]
+    dsum = csum = None
+    if kb:
+        dsum, csum = bucket_apply_ref(xs, pos, words, eta, kb, P)
+    before = roll_apply.launches
+    out = roll_apply(xs, pos, words, eta, rb, P, dsum, csum)
+    ref = roll_apply_ref(xs, pos, words, eta, rb, P, dsum, csum)
+    torch.cuda.synchronize()
+    assert roll_apply.launches == before + 1
+    assert torch.equal(out, ref)
+    # nD, D = 2 and 3
+    for D in (2, 3):
+        cs, pos, words = _roll_case(rng, S, kb + rb, P, D)
+        cs, pos, words = cs.to(cuda), pos.to(cuda), [w.to(cuda) for w in words]
+        lane0 = torch.from_numpy(rng.integers(0, 2, S).astype(bool)).to(cuda)
+        my_pos = torch.where(lane0, pos, pos + 3.0)
+        my_c = torch.where(lane0, cs[:D], cs[D:])
+        acc = wacc = None
+        if kb:
+            acc, wacc = dense_apply_nd_ref(my_pos, words, my_c, eta, kb, P)
+        args = (my_pos, my_c, lane0, cs, words, eta, rb, P, acc, wacc)
+        before = roll_apply_nd.launches
+        out = roll_apply_nd(*args)
+        ref = roll_apply_nd_ref(*args)
+        torch.cuda.synchronize()
+        assert roll_apply_nd.launches == before + 1
+        assert out.shape == cs.shape and torch.equal(out, ref)

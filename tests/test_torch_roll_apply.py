@@ -1,0 +1,384 @@
+"""The roll-pass-and-combine kernel (``csrc/roll_apply.cu``), modelled in
+numpy step by step and held bit for bit to its plain versions
+``roll_apply_ref`` / ``roll_apply_nd_ref``; and the dispatchers of the
+sweep's kernels: ``roll_apply``, ``roll_apply_nd`` and the sampler's
+``sweep_common.sample_words``.
+
+The model follows the kernel: each step reads its partners directly at
+(t + k) mod S and (t - k) mod S for every roll bucket, takes the
+choices from the packed words (field p of word p / 4; the raw choice for
+P = 1), guards the wrap-around on the partner's field only, evaluates
+every pair in full, sums per bucket ``acc + u1 + u2`` from the bucket
+kernel's sums (or +0), and combines.  The plain versions are held to the
+unjitted JAX sweeps by tests/test_torch_sweep.py and
+tests/test_torch_sweep_nd.py.  The kernel itself runs only on the card
+(tests/test_torch_cuda.py)."""
+
+from dataclasses import replace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from gfasort_tpu_torch import kernels  # noqa: E402
+from gfasort_tpu_torch.bench_util import synthetic_path_index  # noqa: E402
+from gfasort_tpu_torch.ops import sweep_common as tsc  # noqa: E402
+from gfasort_tpu_torch.ops.keys import fold_in, key_data  # noqa: E402
+from gfasort_tpu_torch.ops.roll_apply import (roll_apply,  # noqa: E402
+                                              roll_apply_nd,
+                                              roll_apply_nd_ref,
+                                              roll_apply_ref)
+from gfasort_tpu_torch.ops.sweep_dense import (bucket_apply_ref,  # noqa: E402
+                                               dense_apply_nd_ref)
+from gfasort_tpu_torch.ops.sweep_plan import make_sweep_plan  # noqa: E402
+from gfasort_tpu_torch.params import PathSGDParams  # noqa: E402
+
+F32 = np.float32
+ETA = 0.9
+
+
+def _fields(words, P):
+    """Signed choice of each proposal, as the kernel reads it."""
+    if P == 1:
+        return [words[0].astype(np.int64)]
+    return [((words[p // 4].view(np.uint32) >> np.uint32(8 * (p % 4)))
+             & np.uint32(0xFF)).astype(np.int8).astype(np.int64)
+            for p in range(P)]
+
+
+def _weight(fields, t, j, mine, theirs, guard):
+    n = np.zeros(t.shape, np.int64)
+    for f in fields:
+        n += (f == mine) | (guard & (f[j] == theirs))
+    return n.astype(F32)
+
+
+def _base(pa, pb, weight):
+    d = np.abs(pa - pb)
+    valid = d != 0
+    w = np.where(valid, weight, F32(0.0))
+    safe = np.where(valid, d, F32(1.0))
+    mu = np.minimum(F32(ETA) / safe, F32(1.0))
+    return w, safe, mu
+
+
+def _sides(S, k):
+    """Per side: (partner index, wrap guard, my wanted field sign)."""
+    t = np.arange(S)
+    return t, [((t + k) % S, t + k < S, +1), ((t - k) % S, t >= k, -1)]
+
+
+def model_roll_1d(xs, pos, words, buckets, P, dsum=None, csum=None):
+    S = len(xs)
+    fields = _fields(words, P)
+    dsum = np.zeros(S, F32) if dsum is None else dsum.copy()
+    csum = np.zeros(S, F32) if csum is None else csum.copy()
+    for k, ki in buckets:
+        t, sides = _sides(S, k)
+        upd = []
+        for j, guard, sgn in sides:
+            mine, theirs = (ki, ~ki) if sgn > 0 else (~ki, ki)
+            w, safe, mu = _base(pos, pos[j],
+                                _weight(fields, t, j, mine, theirs, guard))
+            dx = xs - xs[j]
+            dx = np.where(dx == 0, F32(1e-9), dx)
+            r = (mu * (np.abs(dx) - safe)) * np.where(dx >= 0, F32(0.5),
+                                                      F32(-0.5))
+            upd.append(((-w) * r, w))
+        dsum = (dsum + upd[0][0]) + upd[1][0]
+        csum = (csum + upd[0][1]) + upd[1][1]
+    return xs + dsum / np.maximum(csum, F32(1.0))
+
+
+def model_roll_nd(my_pos, my_c, lane0, cs, words, buckets, P, acc=None,
+                  wacc=None):
+    D, S = my_c.shape
+    fields = _fields(words, P)
+    acc = np.zeros((D, S), F32) if acc is None else acc.copy()
+    wacc = np.zeros(S, F32) if wacc is None else wacc.copy()
+    for k, ki in buckets:
+        t, sides = _sides(S, k)
+        upd = []
+        for j, guard, sgn in sides:
+            mine, theirs = (ki, ~ki) if sgn > 0 else (~ki, ki)
+            w, safe, mu = _base(my_pos, my_pos[j],
+                                _weight(fields, t, j, mine, theirs, guard))
+            delta = my_c - my_c[:, j]
+            mag2 = delta[0] * delta[0]
+            for d in range(1, D):
+                mag2 = mag2 + delta[d] * delta[d]
+            zero = mag2 == 0
+            delta[0] = np.where(zero, F32(1e-9), delta[0])
+            mag2 = np.where(zero, F32(1e-18), mag2)
+            inv = F32(1.0) / np.sqrt(mag2)
+            r = ((mu * (mag2 * inv - safe)) * F32(0.5)) * inv
+            r = np.where(r > F32(1e30), F32(1e30), r)
+            upd.append((-(w * r) * delta, w))
+        acc = (acc + upd[0][0]) + upd[1][0]
+        wacc = (wacc + upd[0][1]) + upd[1][1]
+    u = acc / np.maximum(wacc, F32(1.0))
+    return np.concatenate([cs[:D] + np.where(lane0, u, F32(0.0)),
+                           cs[D:] + np.where(lane0, F32(0.0), u)])
+
+
+@pytest.fixture(scope="module")
+def workload():
+    pidx = synthetic_path_index(5000, 4, 5000, seed=13)
+    p = replace(PathSGDParams().derive_from_graph(pidx), dtype="float32",
+                pow_mode="fast")
+    return pidx, p
+
+
+def _real_words(pidx, phase, P, seed):
+    """The sampler's words for ``phase`` (choices in-path)."""
+    consts = tsc.sampler_consts(phase, False, "cpu")
+    words, coin = tsc.sample_words(
+        consts, fold_in(key_data(seed), np.arange(P)), False,
+        torch.from_numpy(pidx.step_rank.astype(np.int32)),
+        torch.from_numpy(pidx.step_count_of_step.astype(np.int32)), 1.0,
+        coin=True)
+    return [w.numpy() for w in words], coin.numpy()
+
+
+def _random_words(rng, S, buckets, P):
+    """Choices with no contract: every bucket's ki and ~ki, foreign
+    indices and INACTIVE, also where the partner lies past an end, so
+    that the wrap-around guard decides."""
+    kis = [ki for _, ki in buckets]
+    pool = np.array(kis + [~ki for ki in kis] + [int(tsc.INACTIVE), 3, ~2],
+                    np.int32)
+    sidxs = [torch.from_numpy(pool[rng.integers(0, len(pool), S)])
+             for _ in range(P)]
+    return [w.numpy() for w in tsc.pack_words(sidxs)]
+
+
+def _state(rng, pidx, ties: bool):
+    S = pidx.total_steps
+    xs = (rng.standard_normal(S) * 100).astype(F32)
+    if ties:   # dx == 0 and d == 0 guards
+        xs[rng.integers(0, S, S // 8)] = F32(5.0)
+        pos = np.cumsum(rng.integers(0, 3, S)).astype(F32)
+    else:
+        pos = pidx.step_pos.astype(F32)
+    return xs, pos
+
+
+def _case_buckets(pidx, p, P, kernel: bool):
+    """(kernel buckets, roll buckets) of plan phases 0 and 1: the split
+    at KMAX (with a kernel) or every bucket a roll bucket."""
+    plan = make_sweep_plan(pidx, p, per_octave=2, dense_upto=4, rotate=4,
+                           proposals=P, active_frac=1.0)
+    out = []
+    for phase in plan.phases[:2]:
+        kb, rb = phase.kernel_buckets, phase.roll_buckets
+        if not kernel:
+            kb, rb = (), tuple(sorted(kb + rb, key=lambda b: b[1]))
+        assert rb, "the phase has no roll bucket"
+        out.append((phase, kb, rb))
+    return out
+
+
+CASES_1D = [(P, kernel, words)
+            for P in (12, 1) for kernel in (True, False)
+            for words in ("sampler", "random")]
+
+
+@pytest.mark.parametrize("P,kernel,words", CASES_1D)
+def test_model_equals_roll_apply_ref_1d(workload, P, kernel, words):
+    pidx, p = workload
+    rng = np.random.default_rng(P + 2 * kernel)
+    S = pidx.total_steps
+    for phase, kb, rb in _case_buckets(pidx, p, P, kernel):
+        xs, pos = _state(rng, pidx, ties=words == "random")
+        w = (_real_words(pidx, phase, P, 5)[0] if words == "sampler"
+             else _random_words(rng, S, kb + rb, P))
+        if words == "random":   # an offset past the array: k mod S
+            rb = rb + ((S + 7, rb[0][1]),)
+        xs_t, pos_t = torch.from_numpy(xs), torch.from_numpy(pos)
+        w_t = [torch.from_numpy(x) for x in w]
+        dsum = csum = None
+        if kb:
+            dsum, csum = bucket_apply_ref(xs_t, pos_t, w_t, ETA, kb, P)
+        want = roll_apply(xs_t, pos_t, w_t, ETA, rb, P, dsum, csum)
+        got = model_roll_1d(xs, pos, w, rb, P,
+                            None if dsum is None else dsum.numpy(),
+                            None if csum is None else csum.numpy())
+        assert want.dtype == torch.float32
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.numpy().view(np.int32))
+
+
+CASES_ND = [(D, P, kernel, words)
+            for D, P in ((2, 8), (3, 4), (2, 1)) for kernel in (True, False)
+            for words in ("sampler", "random")]
+
+
+@pytest.mark.parametrize("D,P,kernel,words", CASES_ND)
+def test_model_equals_roll_apply_nd_ref(workload, D, P, kernel, words):
+    pidx, p = workload
+    rng = np.random.default_rng(10 * D + P + kernel)
+    S = pidx.total_steps
+    for phase, kb, rb in _case_buckets(pidx, p, P, kernel):
+        _, pos = _state(rng, pidx, ties=words == "random")
+        cs = (rng.standard_normal((2 * D, S)) * 50).astype(F32)
+        if words == "random":   # coincident ends: mag^2 == 0
+            cs[:, rng.integers(0, S, S // 8)] = F32(2.0)
+            w = _random_words(rng, S, kb + rb, P)
+            lane0 = rng.integers(0, 2, S).astype(bool)
+        else:
+            w, coin = _real_words(pidx, phase, P, 9)
+            lane0 = coin ^ (rng.integers(0, 2, S) == 1)
+        my_pos = pos + np.where(lane0, F32(0.0), F32(3.0))
+        my_c = np.ascontiguousarray(np.where(lane0, cs[:D], cs[D:]))
+        t = {n: torch.from_numpy(a) for n, a in
+             (("my_pos", my_pos), ("my_c", my_c), ("lane0", lane0),
+              ("cs", cs))}
+        w_t = [torch.from_numpy(x) for x in w]
+        acc = wacc = None
+        if kb:
+            acc, wacc = dense_apply_nd_ref(t["my_pos"], w_t, t["my_c"], ETA,
+                                           kb, P)
+        want = roll_apply_nd(t["my_pos"], t["my_c"], t["lane0"], t["cs"],
+                             w_t, ETA, rb, P, acc, wacc)
+        got = model_roll_nd(my_pos, my_c, lane0, cs, w, rb, P,
+                            None if acc is None else acc.numpy(),
+                            None if wacc is None else wacc.numpy())
+        assert want.shape == (2 * D, S)
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.numpy().view(np.int32))
+
+
+def test_no_roll_bucket_is_the_combine_alone():
+    rng = np.random.default_rng(2)
+    xs = torch.from_numpy(rng.standard_normal(300).astype(F32))
+    pos = torch.arange(300, dtype=torch.float32)
+    words = [torch.full((300,), int(tsc.PACKED_INACTIVE), dtype=torch.int32)]
+    dsum = torch.from_numpy(rng.standard_normal(300).astype(F32))
+    csum = torch.from_numpy(rng.integers(0, 3, 300).astype(F32))
+    out = roll_apply(xs, pos, words, ETA, (), 4, dsum, csum)
+    assert torch.equal(out, xs + dsum / torch.clamp_min(csum, 1.0))
+    # no bucket at all: xs + 0 (a -0 becomes +0, as in the engines)
+    xs[0] = -0.0
+    out = roll_apply(xs, pos, words, ETA, (), 4)
+    assert torch.equal(out, xs + 0.0) and not torch.signbit(out[0])
+
+
+class _FakeCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: it reaches a dispatcher's
+    kernel branch without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _failing_build(monkeypatch, tmp_path):
+    """Every kernel wrapper builds the library afresh, into an empty
+    directory, with no CUDA compiler: the build raises."""
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(kernels, "_BUILD", tmp_path / "_build")
+    monkeypatch.setattr(kernels, "nvcc_path", no_nvcc)
+    monkeypatch.setattr(kernels, "library", lambda: kernels.build())
+
+
+def test_roll_apply_dispatch(monkeypatch, tmp_path):
+    S, P = 500, 4
+    rng = np.random.default_rng(4)
+    xs = torch.from_numpy(rng.standard_normal(S).astype(F32))
+    pos = torch.arange(S, dtype=torch.float32)
+    words = [torch.from_numpy(w) for w in
+             _random_words(rng, S, [(3, 0), (40, 1)], P)]
+    before = roll_apply.launches
+    out = roll_apply(xs, pos, words, ETA, [(40, 1)], P)
+    assert roll_apply.launches == before
+    assert torch.equal(out, roll_apply_ref(xs, pos, words, ETA, [(40, 1)], P))
+    with pytest.raises(ValueError):   # 4 proposals ride one word
+        roll_apply(xs, pos, words * 2, ETA, [(40, 1)], P)
+    with pytest.raises(ValueError):   # packed fields need ki < 64
+        roll_apply(xs, pos, words, ETA, [(40, 64)], P)
+    with pytest.raises(ValueError):
+        roll_apply(xs, pos, words, ETA, [(40, 1)], P, dsum=xs)
+    with pytest.raises(ValueError):
+        roll_apply(xs, pos.double(), words, ETA, [(40, 1)], P)
+    meta = torch.empty(S, device="meta")
+    with pytest.raises(ValueError):   # no silent fallback off cpu/cuda
+        roll_apply(meta, meta, [torch.empty(S, dtype=torch.int32,
+                                            device="meta")], ETA, [(40, 1)], P)
+    # on a CUDA tensor the kernel is built or the call raises
+    _failing_build(monkeypatch, tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        roll_apply(xs.as_subclass(_FakeCuda), pos.as_subclass(_FakeCuda),
+                   [w.as_subclass(_FakeCuda) for w in words], ETA, [(40, 1)],
+                   P)
+    assert roll_apply.launches == before
+
+
+def test_roll_apply_nd_dispatch(monkeypatch, tmp_path):
+    S, P, D = 500, 4, 2
+    rng = np.random.default_rng(5)
+    my_pos = torch.arange(S, dtype=torch.float32)
+    cs = torch.from_numpy(rng.standard_normal((2 * D, S)).astype(F32))
+    lane0 = torch.from_numpy(rng.integers(0, 2, S).astype(bool))
+    my_c = torch.where(lane0, cs[:D], cs[D:]).contiguous()
+    words = [torch.from_numpy(w) for w in
+             _random_words(rng, S, [(3, 0), (40, 1)], P)]
+    args = (my_pos, my_c, lane0, cs, words, ETA, [(40, 1)], P)
+    before = roll_apply_nd.launches
+    out = roll_apply_nd(*args)
+    assert roll_apply_nd.launches == before
+    assert torch.equal(out, roll_apply_nd_ref(*args))
+    with pytest.raises(ValueError):
+        roll_apply_nd(my_pos, my_c, lane0.int(), *args[3:])
+    with pytest.raises(ValueError):
+        roll_apply_nd(my_pos, my_c, lane0, cs[:D], *args[4:])
+    with pytest.raises(ValueError):
+        roll_apply_nd(*args, acc=my_c)
+    meta = torch.empty(S, device="meta")
+    with pytest.raises(ValueError):   # no silent fallback off cpu/cuda
+        roll_apply_nd(meta, torch.empty(D, S, device="meta"),
+                      torch.empty(S, dtype=torch.bool, device="meta"),
+                      torch.empty(2 * D, S, device="meta"),
+                      [torch.empty(S, dtype=torch.int32, device="meta")],
+                      ETA, [(40, 1)], P)
+    _failing_build(monkeypatch, tmp_path)
+    fake = [a.as_subclass(_FakeCuda) for a in (my_pos, my_c, lane0, cs)]
+    with pytest.raises(RuntimeError, match="nvcc"):
+        roll_apply_nd(*fake, [w.as_subclass(_FakeCuda) for w in words], ETA,
+                      [(40, 1)], P)
+    assert roll_apply_nd.launches == before
+
+
+def test_sample_words_dispatch(workload, monkeypatch, tmp_path):
+    pidx, p = workload
+    phase = make_sweep_plan(pidx, p, per_octave=2, dense_upto=4, rotate=4,
+                            proposals=8, active_frac=1.0).phases[0]
+    consts = tsc.sampler_consts(phase, False, "cpu")
+    key_words = fold_in(key_data(7), np.arange(8))
+    rank = torch.from_numpy(pidx.step_rank.astype(np.int32))
+    cnt = torch.from_numpy(pidx.step_count_of_step.astype(np.int32))
+    before = tsc.sample_words.launches
+    words, coin = tsc.sample_words(consts, key_words, False, rank, cnt, 1.0)
+    assert coin is None and tsc.sample_words.launches == before
+    ref, _ = tsc.sample_words_ref(consts, key_words, False, rank, cnt, 1.0)
+    assert all(torch.equal(a, b) for a, b in zip(words, ref))
+    with pytest.raises(ValueError):   # no silent fallback off cpu/cuda
+        meta = torch.empty(len(rank), dtype=torch.int32, device="meta")
+        tsc.sample_words(consts, key_words, False, meta, meta, 1.0)
+    with pytest.raises(ValueError):
+        tsc.sample_words(consts, key_words, False, rank.long(), cnt, 1.0)
+    with pytest.raises(ValueError):
+        tsc.sample_words(consts, key_words, False, rank, cnt, 1.0, snap="up")
+    with pytest.raises(ValueError):   # the f64 route calls the plain version
+        c64 = tsc.sampler_consts(phase, False, "cpu", torch.float64)
+        tsc.sample_words(c64, key_words, False, rank, cnt, 1.0)
+    # on a CUDA tensor the kernel is built or the call raises: a failed
+    # build is never answered by the plain version
+    _failing_build(monkeypatch, tmp_path)
+    fake = replace(consts, offs=consts.offs.as_subclass(_FakeCuda))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tsc.sample_words(fake, key_words, False, rank.as_subclass(_FakeCuda),
+                         cnt.as_subclass(_FakeCuda), 1.0)
+    assert tsc.sample_words.launches == before
