@@ -154,19 +154,27 @@ script's seconds so far:
 24. sampler   — the per-sweep sampler kernel (``csrc/sweep_sampler.cu``)
                 against its plain version ``sample_words_ref`` on the
                 card, on the bench index (S = 4M, its real rank and cnt)
-                and the bench plans' phases 0 and 1: the 1D plan's P
-                (12), the 2D layout plan's (8) and the 3D one's (4), the
-                last two with the end coin, and P = 1; warm and cooling,
-                active fraction 1.0 and 0.6, snap stoch and down: every word
-                ``torch.equal`` (else the differing choices and the worst
-                bucket distance are raised); each plan's main case timed
-                beside the plain version and the bound.
+                in every case of ``bench_util.sampler_cases``: the bench
+                plans' phases 0 and 1 at the 1D plan's P (12), the 2D
+                layout plan's (8) and the 3D one's (4), the last two with
+                the end coin, and P = 1; warm and cooling, active
+                fraction 1.0 and 0.6, snap stoch and down (64 cases);
+                then the edges, warm and cooling with both snaps: P = 5
+                with the coin, a 64-offset table and phase 0's offsets
+                cut to their first half (z past the last offset: 12
+                cases).  Every word ``torch.equal`` (else the differing
+                choices and the worst bucket distance are raised); each
+                plan's and edge's main case timed beside the plain
+                version and the bound, with the registers and spills of
+                the kernel it ran.
 25. roll      — both roll-and-combine kernels (``csrc/roll_apply.cu``)
                 against ``roll_apply_ref`` / ``roll_apply_nd_ref`` on the
                 bench index, plan phases 0 and 1 with the sampler's words
-                and the bucket kernels' sums, and phase 0 with every
-                bucket a roll bucket: 1D, 2D and 3D, ``torch.equal``;
-                each timed beside the plain version and the bound.
+                and the bucket kernels' sums, phase 0 with every bucket a
+                roll bucket, and the 1D and 2D edge (P = 5 words, buckets
+                k > S / 2 at ki = 0, k > S, k > 2S): 1D, 2D and 3D,
+                ``torch.equal``; each timed beside the plain version and
+                the bound, with the registers and spills.
 26. whole_sweep — one consensus period of the 1D engine (the bench plan)
                 and of the 2D engine (the layout plan) on the bench
                 index: ``sweep_once`` / ``nd_sweep_once`` with the kernels
@@ -179,8 +187,14 @@ script's seconds so far:
                 kernels), the whole sweep, the plain composition and the
                 consensus.
 
-Then the ``nvidia-smi`` card line, one JSON line describing every kernel,
-and ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
+Every bound (``bound_ms``) is the largest of four times: the bytes over
+the HBM rate, the f32 operations over the f32 peak, the int32 operations
+over the int32 rate and the conversions and transcendentals over theirs,
+the last two at the maximum SM clock the card reports (the ``clock``
+line; the published 1,980 MHz unless it reports another); ``bound_pipe``
+names the one that binds.  Then the ``nvidia-smi`` card line, one JSON
+line describing every kernel, and ``{"ok": true, "device": {...}}`` as
+the last line.  Exits non-zero
 with no result when CUDA is not available.  Neither JAX nor the JAX
 package ``gfasort_tpu`` is imported.
 """
@@ -202,7 +216,10 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from gfasort_tpu_torch.bench_util import (BENCH_SHAPE, F32_OPS_S, HBM_BYTES_S,
+from gfasort_tpu_torch.bench_util import (BENCH_SHAPE, CVT_OPS_PER_CLOCK,
+                                          F32_OPS_S, HBM_BYTES_S,
+                                          INT32_OPS_PER_CLOCK,
+                                          MAX_SM_CLOCK_MHZ,
                                           bench_layout_coords,
                                           contract_choices, cuda_ms)
 
@@ -244,43 +261,96 @@ BENCH_ENV = dict(BENCH_ROUNDS="24")
 BENCH_TIMEOUT_S = 420
 
 
-def bound_ms(S: int, words_in: int, words_out: int, f32_ops_per_step: int):
-    """The least time the card could take: the larger of the bytes
-    (each input word read once, each output word written once) over the
-    HBM rate and the f32 operations over the f32 peak.  Returns
-    (ms, "bytes" or "operations")."""
-    t_bytes = 4.0 * S * (words_in + words_out) / HBM_BYTES_S
-    t_ops = float(S) * f32_ops_per_step / F32_OPS_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+# the SM clock of the int32 and conversion rates: the published maximum,
+# or the maximum the card reports where it reports another (main sets it)
+CLOCK_MHZ = MAX_SM_CLOCK_MHZ
+
+
+def bound_ms(S: int, words_in, words_out, f32=0, int32=0, cvt=0):
+    """The least time the card could take: the largest of four times,
+    the bytes (each input word read once, each output word written once)
+    over the HBM rate, the f32 operations over the f32 peak, the int32
+    operations over the int32 rate and the conversions, transcendentals
+    and population counts over theirs (both at ``CLOCK_MHZ``).  ``f32``,
+    ``int32`` and ``cvt`` count per step.  Returns (ms, "bytes" or
+    "operations", the one that binds: "hbm", "f32", "int32" or "cvt")."""
+    hz = CLOCK_MHZ * 1e6
+    times = {"hbm": 4.0 * S * (words_in + words_out) / HBM_BYTES_S,
+             "f32": float(S) * f32 / F32_OPS_S,
+             "int32": float(S) * int32 / (INT32_OPS_PER_CLOCK * hz),
+             "cvt": float(S) * cvt / (CVT_OPS_PER_CLOCK * hz)}
+    pipe = max(times, key=times.get)
+    return times[pipe] * 1e3, "bytes" if pipe == "hbm" else "operations", pipe
+
+
+def bound_fields(S: int, words_in, words_out, ops) -> dict:
+    """A phase line's bound keys for ``ops`` = (f32, int32, cvt) per step:
+    ``bound_ms``, ``bound_by``, ``bound_pipe``, the clock it assumed and,
+    where the card reports another maximum clock than the published
+    one, a note saying so."""
+    ms, by, pipe = bound_ms(S, words_in, words_out, *ops)
+    rec = dict(bound_ms=ms, bound_by=by, bound_pipe=pipe,
+               bound_clock_mhz=CLOCK_MHZ)
+    if CLOCK_MHZ != MAX_SM_CLOCK_MHZ:
+        rec["bound_clock_note"] = (
+            f"the card reports a maximum SM clock of {CLOCK_MHZ} MHz, not "
+            f"the published {MAX_SM_CLOCK_MHZ}: the int32 and conversion "
+            f"rates use the card's")
+    return rec
 
 
 def n_words(P: int) -> int:
     return 1 if P == 1 else -(-P // 4)
 
 
-def ops_1d(P: int, n_buckets: int) -> int:
-    """f32 arithmetic ops per step of the 1D spec, per bucket and sign:
-    P weight adds, |pos - pos_o|, eta / safe, min, xs - xs_o,
-    mu * (mag - safe) * half_sgn (3), dsum -= w * r (2), csum += w;
-    selects and integer compares are not counted."""
-    return 2 * n_buckets * (P + 10)
+def match_ops(P: int) -> tuple:
+    """(int32, cvt) of one pair's weight, its field match counted per
+    4-byte word: per word the XOR with the broadcast byte of ki (or ~ki),
+    the carry-free zero-byte test (and, add, or-not-and), the same for
+    the partner's word, the guard's AND, the shift into distinct bits and
+    the OR into the mask (11); then a popcount and the count's conversion
+    to f32 (cvt 2).  P = 1: two compares and the guarded OR (3), the
+    weight a select.  Both plus the partner's index and its guard (3)."""
+    if P == 1:
+        return 3 + 3, 0
+    return 11 * n_words(P) + 3, 2
 
 
-def ops_nd(D: int, P: int, n_buckets: int) -> int:
-    """f32 arithmetic ops per step of the nD spec, per bucket and sign:
-    P weight adds, |pos - pos_o|, eta / safe, min, D deltas, mag^2
-    (2D - 1), sqrt, 1 / sqrt, mag, r (sub, 3 muls, min), w * r,
-    acc -= wr * delta (2D), wacc += w."""
-    return 2 * n_buckets * (P + 5 * D + 13)
+# The pair counts below take each pair (t, t + k) once per bucket and
+# step: its weight and its update are the same for both ends (the update
+# negated), so the least work evaluates it once and adds it at both ends.
 
 
-def ops_fused(K: int) -> int:
-    """f32 arithmetic ops per padded step of the fused spec: per bucket
-    and sign |pos - pos_o|, eta / safe, min, xs - xs_o, mag - safe,
-    mu * (.), / 2, / mag, * dx, -w * r (10); per bucket the two pair
-    sums and the two accumulations (4); then max, divide and add (3)."""
-    return 24 * K + 3
+def ops_1d(P: int, n_buckets: int) -> tuple:
+    """(f32, int32, cvt) per step of the 1D spec, per bucket: the pair
+    once (f32 |pos - pos_o|, eta / safe, min, xs - xs_o, mu * (|dx| -
+    safe) * half_sgn (3), w * r: 8; the weight's field match,
+    ``match_ops``; the divide's reciprocal, cvt 1), then at each end dsum
+    += and csum += (f32 4)."""
+    m_int, m_cvt = match_ops(P)
+    return n_buckets * 12, n_buckets * m_int, n_buckets * (m_cvt + 1)
+
+
+def ops_nd(D: int, P: int, n_buckets: int) -> tuple:
+    """(f32, int32, cvt) per step of the nD spec, per bucket: the pair
+    once (f32 |pos - pos_o|, eta / safe, min, D deltas, mag^2 (2D - 1),
+    sqrt, 1 / sqrt, mag, r (sub, 3 muls, min), w * r, wr * delta (D):
+    4D + 11; the field match, ``match_ops``; eta / safe's and 1 / sqrt's
+    reciprocals and the square root, cvt 3), then at each end acc +=
+    (D) and wacc += (f32 2D + 2)."""
+    m_int, m_cvt = match_ops(P)
+    return n_buckets * (6 * D + 13), n_buckets * m_int, n_buckets * (m_cvt + 3)
+
+
+def ops_fused(K: int) -> tuple:
+    """(f32, int32, cvt) per padded step of the fused spec (P = 1), per
+    bucket: the pair once (f32 |pos - pos_o|, eta / safe, min, xs - xs_o,
+    mag - safe, mu * (.), / 2, / mag, * dx, -w * r: 10; int32 the raw
+    choices' two compares and guarded OR and the rank / cnt guards, add,
+    two compares and an and: 7; cvt the two divides' reciprocals), then
+    at each end the update's and the weight's sums (f32 4); per step
+    max, divide and add (f32 3, cvt 1)."""
+    return 14 * K + 3, 7 * K, 2 * K + 1
 
 
 def card() -> str:
@@ -288,6 +358,16 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's maximum SM clock in MHz, as ``nvidia-smi`` reports it
+    (``clocks.max.sm``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 _T0 = time.perf_counter()
@@ -329,11 +409,12 @@ def phase_kernel(plan, pidx, card_line):
             ms = cuda_ms(lambda: bucket_apply(xs, pos, words, eta, buckets, P))
             plain_ms = cuda_ms(
                 lambda: bucket_apply_ref(xs, pos, words, eta, buckets, P), 5)
-            bms, by = bound_ms(S, 2 + n_words(P), 2, ops_1d(P, len(buckets)))
             rec = dict(S=S, P=P, buckets=[list(b) for b in buckets],
                        max_abs_err=float(err.max()),
                        bit_identical=bool(torch.equal(d_k, d_r)),
-                       ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+                       ms=ms, plain_ms=plain_ms,
+                       **bound_fields(S, 2 + n_words(P), 2,
+                                      ops_1d(P, len(buckets))))
             results[(ph_i, P)] = rec
             say("kernel", card_line, phase_of_plan=ph_i, **rec)
     return results
@@ -368,12 +449,12 @@ def phase_kernel_nd(plans, S, pos_np, card_line):
                                                 buckets, P))
             plain_ms = cuda_ms(lambda: dense_apply_nd_ref(
                 pos, words, my_c, eta, buckets, P), 3)
-            bms, by = bound_ms(S, 1 + n_words(P) + D, D + 1,
-                               ops_nd(D, P, len(buckets)))
             rec = dict(S=S, D=D, P=P, buckets=[list(b) for b in buckets],
                        max_abs_err=float(err.max()),
                        bit_identical=bool(torch.equal(a_k, a_r)),
-                       ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+                       ms=ms, plain_ms=plain_ms,
+                       **bound_fields(S, 1 + n_words(P) + D, D + 1,
+                                      ops_nd(D, P, len(buckets))))
             results[(D, P, ph_i)] = rec
             say("kernel_nd", card_line, phase_of_plan=ph_i, **rec)
             del words, a_k, w_k, a_r, w_r, err
@@ -457,14 +538,14 @@ def phase_sweep_apply(plan, pidx, card_line):
         S_pad, L = lay["S_pad"], lay["L"]
         # each input read once (xs, pos, sidx padded to L; rank, cnt),
         # the output written once
-        bms, by = bound_ms(S_pad, (3 * L + 2 * S_pad) / S_pad, 1,
-                           ops_fused(len(offs)))
         rec = dict(S=lay["S"], S_pad=S_pad, H=lay["H"], K=len(offs),
                    offs=list(offs), eta_of=c["eta_of"], eta=eta,
                    kernel_buckets=len(c["phase"].kernel_buckets),
                    roll_buckets=len(c["phase"].roll_buckets),
                    max_abs_err=float(err.max()), bit_identical=True,
-                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   ms=ms, plain_ms=plain_ms,
+                   **bound_fields(S_pad, (3 * L + 2 * S_pad) / S_pad, 1,
+                                  ops_fused(len(offs))),
                    split_ms=split_ms)
         results[(c["phase_of_plan"], c["eta_of"])] = rec
         say("sweep_apply", card_line, phase_of_plan=c["phase_of_plan"], **rec)
@@ -484,8 +565,7 @@ def phase_shift_probe(card_line):
     for S in SHIFT_SIZES:
         reset_launches()
         res = dense_probe.run(S, "cuda")
-        bms, by = bound_ms(S, 1, 1, 2 * res["halo"])
-        res.update(bound_ms=bms, bound_by=by)
+        res.update(bound_fields(S, 1, 1, (2 * res["halo"], 0, 0)))
         if any(n < 1 for n in res["launches"].values()):
             raise AssertionError(f"a shift-sum kernel never launched: "
                                  f"{res['launches']}")
@@ -495,14 +575,30 @@ def phase_shift_probe(card_line):
     return results
 
 
-def ops_sampler(P: int) -> int:
-    """f32 arithmetic ops per step of the sampler, per proposal: u
-    (convert, scale), the Zipf draw (n, u * zeta, eta_z * u - eta_z + 1,
-    the clamp, log, alpha *, exp, n *, 1 +, two clamps, two compares),
-    the uniform draw (convert, multiply) and the stochastic snap (four
-    converts, the u2 scale, two subtractions, max, divide, compare); the
-    u32 hash and the integer selects and searches are not counted."""
-    return 30 * P
+def ops_sampler(P: int, K: int, coin: bool, frac: float) -> tuple:
+    """(f32, int32, cvt) per step of the sampler, d = ceil(log2(K + 1))
+    the compares of one search of the offsets.  Per proposal: int32 the
+    hash (three murmur mixes of nine ops, the counter's add, the two
+    XORs and u's shift: 31), the coins and flags (bit 31; bit 30 and its
+    mask; backward, forward, use_zipf; u2's field: 9), the draws (min(z,
+    js), the uniform draw's + 1, the select: 3), the snap (max(z, 1), d
+    compares, the promotion's compare, and, add and select: 5 + d), the
+    activity (off_sel <= avail, direction, has_path, and: 4; the coin's
+    mask and compare where the fraction is below 1: 2) and the packing
+    (the sign's select, the field or INACTIVE8, shift, or: 4; P = 1 the
+    select: 1); f32 u's scale, the Zipf draw (u * zeta, eta_z * u - eta_z
+    + 1, the clamp, alpha *, n *, 1 +, the NaN test, two clamps, two
+    compares: 13), the uniform draw's product and the stochastic snap
+    (u2's scale, z - lo, the divide, the compare: 4): 19; cvt u's, u2's
+    and z's conversions, the two truncations, logf, expf and the divide's
+    reciprocal (8).  Per step: int32 the two chains' searches (2d),
+    avail_f (2), their clamps to the space and to 1 (4) and the step's
+    flags (4), the end coin's shift and mask (2); cvt n and max(avail, 1)
+    as f32 for both chains (4)."""
+    d = max(1, (K).bit_length())   # ceil(log2(K + 1))
+    per_p = 31 + 9 + 3 + 5 + d + 4 + (2 if frac < 1.0 else 0) + (
+        1 if P == 1 else 4)
+    return 19 * P, P * per_p + 2 * d + 10 + (2 if coin else 0), 8 * P + 4
 
 
 def field_distance(words_a, words_b, P: int):
@@ -529,169 +625,121 @@ def field_distance(words_a, words_b, P: int):
     return n, worst
 
 
-def sampler_plans(bench_plan, nd_plans):
-    """The sampler phase's (name, plan, P, end coin) cases: the 1D bench
-    plan at its P, the 2D and 3D layout plans at theirs, and P = 1."""
-    return (("1d", bench_plan, bench_plan.proposals, False),
-            ("2d", nd_plans[2], nd_plans[2].proposals, True),
-            ("3d", nd_plans[3], nd_plans[3].proposals, True),
-            ("p1", bench_plan, 1, False))
+def ptxas_row(ptxas, name: str) -> dict:
+    """registers and spill_bytes of the compiled kernel ``name`` (a
+    demangled name's prefix, template arguments included) in the build's
+    ptxas report."""
+    for row in ptxas:
+        if name in row["kernel"]:
+            return {"kernel": name, "registers": row.get("registers"),
+                    "spill_bytes": row.get("spill_bytes")}
+    return {"kernel": name, "registers": None, "spill_bytes": None}
 
 
-def phase_sampler(bench, bench_plan, nd_plans, card_line):
+def phase_sampler(bench, plans, card_line, ptxas, dev=None):
     """The sampler kernel against its plain version on the card, on the
-    bench index (its real rank and cnt) and plan phases 0 and 1, every
-    case of cooling, activity fraction and snap, the nD cases with their
-    end coin: ``torch.equal``, else the count of differing choices and
-    the worst bucket distance are raised.  The main case of each plan
-    (phase 0, warm, fraction 1, stochastic snap) is timed."""
-    from gfasort_tpu_torch.ops.keys import key_data, sweep_key_table
+    bench index (its real rank and cnt), in every case of
+    ``bench_util.sampler_cases`` (the 1D, 2D and 3D plans' P and P = 1 on
+    plan phases 0 and 1, every cooling state, activity fraction and
+    snap, the nD cases with their end coin; the edges P = 5, a 64-offset
+    table and a cut table past whose last offset z lies):
+    ``torch.equal``, else the count of differing choices and the worst
+    bucket distance are raised.  Each case name's main case (its first
+    phase, warm, fraction 1, stochastic snap) is timed beside the plain
+    version and the bound, with the registers and spills of the kernel
+    it ran."""
+    from gfasort_tpu_torch.bench_util import sampler_cases
     from gfasort_tpu_torch.ops.sweep_common import (sample_words,
-                                                    sample_words_ref,
-                                                    sampler_consts)
+                                                    sample_words_ref)
 
-    dev = torch.device("cuda")
+    dev = dev or torch.device("cuda")
     S = bench.total_steps
-    rank = torch.from_numpy(bench.step_rank.astype(np.int32)).to(dev)
-    cnt = torch.from_numpy(bench.step_count_of_step.astype(np.int32)).to(dev)
-    results = {}
-    for name, plan, P, coin in sampler_plans(bench_plan, nd_plans):
-        key_words = sweep_key_table(key_data(7), 1, P)[0]
-        checked = 0
-        for ph_i in (0, 1):
-            for cooling in (False, True):
-                consts = sampler_consts(plan.phases[ph_i], cooling, dev)
-                for frac in (1.0, 0.6):
-                    for snap in ("stoch", "down"):
-                        args = (consts, key_words, cooling, rank, cnt, frac,
-                                snap)
-                        w_k, c_k = sample_words(*args, coin=coin)
-                        w_r, c_r = sample_words_ref(*args, coin=coin)
-                        torch.cuda.synchronize()
-                        where = (f"{name}, phase {ph_i}, cooling {cooling}, "
-                                 f"frac {frac}, snap {snap}")
-                        if not all(torch.equal(a, b) for a, b in zip(w_k, w_r)):
-                            n, worst = field_distance(w_k, w_r, P)
-                            raise AssertionError(
-                                f"sampler words differ ({where}): {n} "
-                                f"choices, worst bucket distance {worst}")
-                        if coin and not torch.equal(c_k, c_r):
-                            raise AssertionError(f"end coin differs ({where})")
-                        checked += 1
-                        del w_k, w_r, c_k, c_r
-        consts = sampler_consts(plan.phases[0], False, dev)
-        args = (consts, key_words, False, rank, cnt, 1.0, "stoch")
-        ms = cuda_ms(lambda: sample_words(*args, coin=coin))
-        plain_ms = cuda_ms(lambda: sample_words_ref(*args, coin=coin), 3)
-        # rank and cnt in, the words (and the coin's byte) out
-        bms, by = bound_ms(S, 2, n_words(P) + (0.25 if coin else 0),
-                           ops_sampler(P))
-        rec = dict(S=S, P=P, end_coin=coin, cases_checked=checked,
-                   max_abs_err=0.0, bit_identical=True, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bms, bound_by=by)
-        results[name] = rec
+    results, checked = {}, {}
+    for c in sampler_cases(bench, plans, dev):
+        name, P, coin, args = c["name"], c["P"], c["coin"], c["args"]
+        w_k, c_k = sample_words(*args, coin=coin)
+        w_r, c_r = sample_words_ref(*args, coin=coin)
+        torch.cuda.synchronize()
+        where = (f"{name}, phase {c['phase_of_plan']}, cooling "
+                 f"{c['cooling']}, frac {c['frac']}, snap {c['snap']}")
+        if not all(torch.equal(a, b) for a, b in zip(w_k, w_r)):
+            n, worst = field_distance(w_k, w_r, P)
+            raise AssertionError(f"sampler words differ ({where}): {n} "
+                                 f"choices, worst bucket distance {worst}")
+        if coin and not torch.equal(c_k, c_r):
+            raise AssertionError(f"end coin differs ({where})")
+        checked[name] = checked.get(name, 0) + 1
+        del w_k, w_r, c_k, c_r
+        if c["main"]:
+            ms = cuda_ms(lambda: sample_words(*args, coin=coin))
+            plain_ms = cuda_ms(lambda: sample_words_ref(*args, coin=coin), 3)
+            K = c["K"]
+            # rank and cnt in, the words (and the coin's byte) out
+            rec = dict(S=S, P=P, K=K, end_coin=coin, max_abs_err=0.0,
+                       bit_identical=True, ms=ms, plain_ms=plain_ms,
+                       **bound_fields(S, 2, n_words(P) + (0.25 if coin else 0),
+                                      ops_sampler(P, K, coin, c["frac"])),
+                       **ptxas_row(ptxas, f"sweep_sampler_kernel<(int){P}, "
+                                          f"(int){4 if K < 16 else 7}>"))
+            results[name] = rec
+    for name, rec in results.items():
+        rec["cases_checked"] = checked[name]
         say("sampler", card_line, plan=name, **rec)
     torch.cuda.empty_cache()
     return results
 
 
-def phase_roll(bench, bench_plan, nd_plans, card_line):
-    """Both roll kernels against their plain versions on the card, on
-    the bench index with the sampler's words and the bucket kernels'
-    sums, plan phases 0 and 1 (1D at the bench plan's P, 2D and 3D at
-    the layout plans'), and phase 0 with every bucket a roll bucket (as
-    under ``GFASORT_DENSE_KERNEL=xla``): ``torch.equal``; each timed."""
-    from gfasort_tpu_torch.convert import layout_static_arrays
-    from gfasort_tpu_torch.ops.keys import key_data, sweep_key_table
+def phase_roll(bench, plans, card_line, ptxas, dev=None):
+    """Both roll kernels against their plain versions on the card, in
+    every case of ``bench_util.roll_cases`` (the bench index with the
+    sampler's words and the bucket kernels' sums; plan phases 0 and 1 at
+    the 1D plan's P and the 2D and 3D layout plans', phase 0 with every
+    bucket a roll bucket, and the 1D and 2D edge: P = 5 words with
+    buckets k > S / 2 at ki = 0, k > S and k > 2S): ``torch.equal``; each
+    timed beside the plain version and the bound, with the registers and
+    spills of the kernel it ran."""
+    from gfasort_tpu_torch.bench_util import roll_cases
     from gfasort_tpu_torch.ops.roll_apply import (roll_apply, roll_apply_nd,
                                                   roll_apply_nd_ref,
                                                   roll_apply_ref)
-    from gfasort_tpu_torch.ops.sweep_common import sample_words, sampler_consts
-    from gfasort_tpu_torch.ops.sweep_dense import bucket_apply, dense_apply_nd
-    from gfasort_tpu_torch.ops.sweep_nd import chosen_ends
 
-    dev = torch.device("cuda")
+    dev = dev or torch.device("cuda")
     S = bench.total_steps
-    rng = np.random.default_rng(3)
-    pos, rank, cnt, rev, length = layout_static_arrays(bench, dev)
     results = {}
-
-    def cases(plan):
-        for ph_i in (0, 1):
-            ph = plan.phases[ph_i]
-            yield ph_i, ph, ph.kernel_buckets, ph.roll_buckets
-        ph = plan.phases[0]
-        yield "0_all", ph, (), tuple(sorted(ph.kernel_buckets + ph.roll_buckets,
-                                            key=lambda b: b[1]))
-
-    def check(tag, out, ref, **info):
+    for c in roll_cases(bench, plans, dev):
+        D, P, kb, rb, args = c["dims"], c["P"], c["kb"], c["rb"], c["args"]
+        run, ref_fn = ((roll_apply, roll_apply_ref) if D == 1
+                       else (roll_apply_nd, roll_apply_nd_ref))
+        out = run(*args)
+        ref = ref_fn(*args)
+        torch.cuda.synchronize()
         if not torch.equal(out, ref):
             err = float((out - ref).abs().max())
-            raise AssertionError(f"{tag} off by {err} ({info})")
-
-    # 1D
-    P = bench_plan.proposals
-    xs = torch.from_numpy((rng.standard_normal(S) * 100).astype(np.float32)).to(dev)
-    eta = float(bench_plan.sweep_eta[0])
-    key_words = sweep_key_table(key_data(5), 1, P)[0]
-    for ph_i, ph, kb, rb in cases(bench_plan):
-        words, _ = sample_words(sampler_consts(ph, False, dev), key_words,
-                                False, rank, cnt, 1.0)
-        sums = bucket_apply(xs, pos, words, eta, kb, P) if kb else (None, None)
-        args = (xs, pos, words, eta, rb, P, *sums)
-        out = roll_apply(*args)
-        ref = roll_apply_ref(*args)
-        torch.cuda.synchronize()
-        check("roll_apply", out, ref, phase=ph_i)
-        ms = cuda_ms(lambda: roll_apply(*args))
-        plain_ms = cuda_ms(lambda: roll_apply_ref(*args), 3)
-        # xs, pos, dsum, csum and the words in, xs out
-        bms, by = bound_ms(S, 2 + 2 * bool(kb) + n_words(P), 1,
-                           ops_1d(P, len(rb)) + 3)
+            raise AssertionError(f"{c['kernel']} off by {err} (dims {D}, "
+                                 f"phase {c['phase_of_plan']})")
+        del out, ref
+        ms = cuda_ms(lambda: run(*args))
+        plain_ms = cuda_ms(lambda: ref_fn(*args), 3)
+        if D == 1:
+            f32, i32, cvt = ops_1d(P, len(rb))
+            # the combine: max, divide, add
+            ops = (f32 + 3, i32, cvt + 1)
+            kname = f"roll_apply_kernel<(int){0 if P == 1 else n_words(P)}>"
+        else:
+            f32, i32, cvt = ops_nd(D, P, len(rb))
+            # the per-end combine: max, D divides, 2D adds and selects
+            ops = (f32 + 4 * D + 1, i32, cvt + D)
+            kname = f"roll_apply_nd_kernel<(int){D}, (bool){int(P > 1)}>"
         rec = dict(S=S, P=P, roll_buckets=[list(b) for b in rb],
                    kernel_buckets=len(kb), max_abs_err=0.0,
                    bit_identical=True, ms=ms, plain_ms=plain_ms,
-                   bound_ms=bms, bound_by=by)
-        results[("1d", ph_i)] = rec
-        say("roll", card_line, dims=1, phase_of_plan=ph_i, **rec)
-        del words, sums, args, out, ref
-    del xs
-    # nD
-    for D in (2, 3):
-        plan = nd_plans[D]
-        P = plan.proposals
-        eta = float(plan.sweep_eta[0])
-        cs = torch.from_numpy(np.concatenate([
-            bench_layout_coords(rng, bench.step_pos.astype(np.float32), D)
-            for _ in range(2)])).to(dev)
-        key_words = sweep_key_table(key_data(6), 1, P)[0]
-        for ph_i, ph, kb, rb in cases(plan):
-            words, coin = sample_words(sampler_consts(ph, False, dev),
-                                       key_words, False, rank, cnt, 1.0,
-                                       coin=True)
-            my_pos, lane0, my_c = chosen_ends(cs, pos, length, rev, coin)
-            sums = (dense_apply_nd(my_pos, words, my_c, eta, kb, P) if kb
-                    else (None, None))
-            args = (my_pos, my_c, lane0, cs, words, eta, rb, P, *sums)
-            out = roll_apply_nd(*args)
-            ref = roll_apply_nd_ref(*args)
-            torch.cuda.synchronize()
-            check("roll_apply_nd", out, ref, dims=D, phase=ph_i)
-            ms = cuda_ms(lambda: roll_apply_nd(*args))
-            plain_ms = cuda_ms(lambda: roll_apply_nd_ref(*args), 3)
-            # my_pos, my_c, lane0's byte, cs, acc, wacc and the words in,
-            # cs out
-            bms, by = bound_ms(S, 1 + D + 0.25 + 2 * D + (D + 1) * bool(kb)
-                               + n_words(P), 2 * D,
-                               ops_nd(D, P, len(rb)) + 4 * D + 1)
-            rec = dict(S=S, D=D, P=P, roll_buckets=[list(b) for b in rb],
-                       kernel_buckets=len(kb), max_abs_err=0.0,
-                       bit_identical=True, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bms, bound_by=by)
-            results[(f"{D}d", ph_i)] = rec
-            say("roll", card_line, dims=D, phase_of_plan=ph_i, **rec)
-            del words, coin, my_pos, lane0, my_c, sums, args, out, ref
-        del cs
+                   **bound_fields(S, c["words_in"], c["words_out"], ops),
+                   **ptxas_row(ptxas, kname))
+        if D > 1:
+            rec["D"] = D
+        results[("1d" if D == 1 else f"{D}d", c["phase_of_plan"])] = rec
+        say("roll", card_line, dims=D, phase_of_plan=c["phase_of_plan"], **rec)
+        del args, c
     torch.cuda.empty_cache()
     return results
 
@@ -1955,7 +2003,7 @@ def kernel_entry(name, source, replaces, launches, cases, main_case,
         "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": library_ms,
+        "library_ms": library_ms, "bound_pipe": main_case["bound_pipe"],
     }
     if note:
         entry["note"] = note
@@ -1967,7 +2015,8 @@ def shift_entry(variant, probe):
     probe size."""
     res = probe[SHIFT_SIZES[0]]
     case = dict(res["variants"][variant], plain_ms=res["plain_ms"],
-                bound_ms=res["bound_ms"], bound_by=res["bound_by"])
+                bound_ms=res["bound_ms"], bound_by=res["bound_by"],
+                bound_pipe=res["bound_pipe"])
     return kernel_entry(
         f"shift_sum_{variant}", "gfasort_tpu_torch/csrc/shift_sum.cu",
         "scratch/dense_probe.py:81, scratch/dense_probe.py:116, "
@@ -1991,17 +2040,23 @@ def main() -> int:
     from gfasort_tpu_torch.params import LayoutSGDParams, PathSGDParams
     from gfasort_tpu_torch.tools.make_synthetic_gfa import write_synthetic_gfa
 
+    global CLOCK_MHZ
     t_start = time.perf_counter()
     card_line = card()
+    CLOCK_MHZ = max_sm_clock_mhz()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    say("clock", card_line, max_sm_clock_mhz=CLOCK_MHZ,
+        published_max_sm_clock_mhz=MAX_SM_CLOCK_MHZ,
+        bounds_use_mhz=CLOCK_MHZ)
 
     t0 = time.perf_counter()
     lib_path, log = kernels.build()
     t_build = time.perf_counter() - t0
     kernels.library()
+    ptxas = kernels.ptxas_report(log)
     say("build", card_line, seconds=t_build, library=lib_path.name,
-        ptxas=kernels.ptxas_report(log))
+        ptxas=ptxas)
 
     bench = synthetic_path_index(*BENCH_SHAPE, seed=0)
     bench_plan = make_sweep_plan(bench, PathSGDParams().derive_from_graph(bench))
@@ -2012,8 +2067,9 @@ def main() -> int:
     kres_nd = phase_kernel_nd(nd_plans, bench.total_steps,
                               bench.step_pos.astype(np.float32), card_line)
     sres, sweep_launches = phase_sweep_apply(bench_plan, bench, card_line)
-    samp = phase_sampler(bench, bench_plan, nd_plans, card_line)
-    rres = phase_roll(bench, bench_plan, nd_plans, card_line)
+    plans = {"1d": bench_plan, **nd_plans}
+    samp = phase_sampler(bench, plans, card_line, ptxas)
+    rres = phase_roll(bench, plans, card_line, ptxas)
     phase_whole_sweep(bench, bench_plan, nd_plans, card_line)
     phase_sweep_parts(bench, bench_plan, card_line)
     probe = phase_shift_probe(card_line)

@@ -10,13 +10,16 @@ time whole runs from one device synchronisation to the next, the first
 run reported apart as ``warmup_s``; ``measure_applied_frac`` replays the
 sampler through ``ops.sweep.build_applied_counter``; ``roofline_model``
 holds a measured rate against the H100 peaks (``HBM_BYTES_S``,
-``F32_OPS_S``); ``bench_native_1d`` and ``bench_native_1d_mt`` time the
+``F32_OPS_S``; the int32 and conversion rates beside them serve
+``chip_smoke.bound_ms``); ``bench_native_1d`` and ``bench_native_1d_mt`` time the
 C++ oracle's loop on the host; ``sweep_quality_vs_oracle`` and
 ``layout_quality_vs_oracle`` certify the sweep engines against the C++
 oracle.  ``gather_consensus_ms`` and ``cuda_ms`` time device work;
 ``BENCH_SHAPE``, ``contract_choices`` and ``bench_layout_coords`` make
 the bucket kernels' inputs of ``chip_smoke.py`` and
-``tools/kernel_ab.py``, ``fused_cases`` the fused sweep apply's.
+``tools/kernel_ab.py``, ``fused_cases`` the fused sweep apply's and
+``sampler_cases`` / ``roll_cases`` the sampler's and the roll kernels'
+(``edge_phase`` builds their edge cases' offset sets).
 """
 
 from __future__ import annotations
@@ -32,11 +35,14 @@ from .params import PathSGDParams
 
 __all__ = ["synthetic_path_index", "shuffled_path_index", "rank_quality",
            "bench_params", "bench_batched_1d", "bench_sweep_1d",
-           "bench_sweep_nd", "HBM_BYTES_S", "F32_OPS_S", "roofline_model",
+           "bench_sweep_nd", "HBM_BYTES_S", "F32_OPS_S", "H100_SMS",
+           "MAX_SM_CLOCK_MHZ", "INT32_OPS_PER_CLOCK", "CVT_OPS_PER_CLOCK",
+           "roofline_model",
            "measure_applied_frac", "bench_native_1d", "bench_native_1d_mt",
            "sweep_quality_vs_oracle", "layout_quality_vs_oracle",
            "gather_consensus_ms", "cuda_ms", "BENCH_SHAPE",
-           "contract_choices", "bench_layout_coords", "fused_cases"]
+           "contract_choices", "bench_layout_coords", "fused_cases",
+           "edge_phase", "sampler_cases", "roll_cases"]
 
 # the bench-shape graph: nodes, paths, steps per path (bench.py:50-52)
 BENCH_SHAPE = (1_000_000, 16, 250_000)
@@ -46,6 +52,17 @@ BENCH_SHAPE = (1_000_000, 16, 250_000)
 # tensor cores.  ``roofline_model`` and ``chip_smoke.bound_ms`` read them.
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
+# Per-clock rates of the H100 SXM's 132 SMs, from the CUDA C++
+# Programming Guide's arithmetic-throughput table for compute capability
+# 9.0: 32-bit integer add, multiply, shift, compare and logic at 64 per
+# clock per SM; type conversions, the f32 transcendentals (log2, exp2,
+# reciprocal, square root) and population counts at 16.  At the
+# published maximum SM clock of 1,980 MHz they give 16.7e12 int32 and
+# 4.18e12 conversion operations/s.  ``chip_smoke.bound_ms`` reads them.
+H100_SMS = 132
+MAX_SM_CLOCK_MHZ = 1980.0
+INT32_OPS_PER_CLOCK = H100_SMS * 64
+CVT_OPS_PER_CLOCK = H100_SMS * 16
 
 
 def synthetic_path_index(
@@ -743,3 +760,170 @@ def fused_cases(pidx, plan, dev):
                               offs=offs, phase=phase, layout=lay, xs=xs,
                               pos=pos, sidx=sidx, args=args))
     return cases
+
+
+def edge_phase(pidx, params, offs):
+    """A rotation phase over the offsets ``offs`` with the Zipf constants
+    the plans give them, every bucket a roll bucket: the sampler's and
+    the roll kernels' edge cases (a full 64-offset table, a cut set
+    whose largest offset lies below most jump spaces)."""
+    from .ops.fastpow import zeta_table
+    from .ops.sweep_plan import COOL_THETA, PhasePlan, bucket_consts
+
+    offs = np.asarray(offs, dtype=np.int32)
+    zetas = zeta_table(params.space, params.space_max,
+                       params.space_quantization_step, params.theta)
+    warm = bucket_consts(offs, params, zetas, float(params.theta))
+    cool = bucket_consts(offs, params, zetas, COOL_THETA)
+    return PhasePlan(
+        offs=offs, kernel_buckets=(),
+        roll_buckets=tuple((int(k), ki) for ki, k in enumerate(offs.tolist())),
+        zeta=np.array([warm[0], cool[0]]), eta_z=np.array([warm[1], cool[1]]),
+        zeta2theta=np.array([warm[2], cool[2]]),
+        theta=np.array([float(params.theta), COOL_THETA]),
+        space=int(params.space))
+
+
+def wide_offsets(pidx, params, K: int = 64) -> np.ndarray:
+    """K offsets spread over the whole jump range (the largest table the
+    sampler kernel takes at K = 64): every ``len / K``-th of the
+    log-spaced set with 8 per octave above 16, its ends included."""
+    from .ops.sweep_policy import offset_set
+
+    max_jump = max(1, min(int(params.space), pidx.max_path_step_count - 1))
+    full = offset_set(max_jump, 8, 16)
+    if len(full) < K:
+        raise ValueError(f"{len(full)} offsets below {max_jump}, fewer than {K}")
+    return full[np.linspace(0, len(full) - 1, K).round().astype(np.int64)]
+
+
+def sampler_cases(pidx, plans, dev):
+    """The sampler kernel's cases on ``pidx`` (its real rank and cnt):
+    the 1D plan's P (``plans["1d"]``), the 2D and 3D layout plans'
+    (``plans[2]``, ``plans[3]``) with the end coin, and P = 1, each on
+    plan phases 0 and 1, warm and cooling, active fraction 1.0 and 0.6,
+    snap stoch and down; then the edges, each warm and cooling with both
+    snaps: P = 5 with the coin (three unused fields), a 64-offset table
+    (``wide_offsets``) and phase 0's offsets cut to their first half (z
+    past the last offset: promotions to oidx = K).  One dict per case:
+    ``name``, ``phase_of_plan``, ``P``, ``coin``, ``cooling``, ``frac``,
+    ``snap``, ``K``, ``main`` (the case each name is timed at: its first
+    phase, warm, fraction 1, stoch) and ``args`` for ``sample_words``."""
+    import torch
+
+    from .ops.keys import key_data, sweep_key_table
+    from .ops.sweep_common import sampler_consts
+    from .params import PathSGDParams
+
+    rank = torch.from_numpy(pidx.step_rank.astype(np.int32)).to(dev)
+    cnt = torch.from_numpy(pidx.step_count_of_step.astype(np.int32)).to(dev)
+    p1d = plans["1d"]
+    ph0 = p1d.phases[0]
+    params = PathSGDParams().derive_from_graph(pidx)
+    K0 = len(ph0.offs)
+    wide = edge_phase(pidx, params, wide_offsets(pidx, params))
+    cut = edge_phase(pidx, params, ph0.offs[: K0 // 2])
+    grid = [(c, f, s) for c in (False, True) for f in (1.0, 0.6)
+            for s in ("stoch", "down")]
+    edge_grid = [(c, 1.0, s) for c in (False, True) for s in ("stoch", "down")]
+    groups = [
+        ("1d", p1d.proposals, False, (0, 1), p1d.phases, grid),
+        ("2d", plans[2].proposals, True, (0, 1), plans[2].phases, grid),
+        ("3d", plans[3].proposals, True, (0, 1), plans[3].phases, grid),
+        ("p1", 1, False, (0, 1), p1d.phases, grid),
+        ("p5", 5, True, (0,), p1d.phases, edge_grid),
+        ("k64", 12, False, ("k64",), {"k64": wide}, edge_grid),
+        ("past_last", 12, False, ("cut",), {"cut": cut}, edge_grid),
+    ]
+    for name, P, coin, ph_ids, phases, cases in groups:
+        key_words = sweep_key_table(key_data(7), 1, P)[0]
+        for n_ph, ph_i in enumerate(ph_ids):
+            for n_c, (cooling, frac, snap) in enumerate(cases):
+                consts = sampler_consts(phases[ph_i], cooling, dev)
+                yield dict(name=name, phase_of_plan=ph_i, P=P, coin=coin,
+                           cooling=cooling, frac=frac, snap=snap,
+                           K=len(phases[ph_i].offs),
+                           main=n_ph == 0 and n_c == 0,
+                           args=(consts, key_words, cooling, rank, cnt, frac,
+                                 snap))
+
+
+def roll_cases(pidx, plans, dev):
+    """The roll kernels' cases on ``pidx``, from the sampler's words and
+    the bucket kernels' sums: 1D at the 1D plan's P, 2D and 3D at the
+    layout plans', each on plan phases 0 and 1 and on phase 0 with every
+    bucket a roll bucket (as under ``GFASORT_DENSE_KERNEL=xla``); then
+    the 1D and 2D edge: P = 5 words (three unused fields, 0) with roll
+    buckets k > S / 2 at ki = 0, k = S + 7 and k = 2S + 3 (partners read
+    mod S) and phase 0's kernel buckets.  One dict per case: ``dims``,
+    ``phase_of_plan``, ``P``, ``kb``, ``rb``, ``kernel`` ("roll_apply" or
+    "roll_apply_nd"), ``words_in`` / ``words_out`` (the f32/i32 words
+    per step each input and output holds, for the byte bound) and
+    ``args`` for ``roll_apply`` / ``roll_apply_nd``."""
+    import torch
+
+    from .convert import layout_static_arrays
+    from .ops.keys import key_data, sweep_key_table
+    from .ops.sweep_common import sample_words, sampler_consts
+    from .ops.sweep_dense import bucket_apply, dense_apply_nd
+    from .ops.sweep_nd import chosen_ends
+
+    S = pidx.total_steps
+    rng = np.random.default_rng(3)
+    pos, rank, cnt, rev, length = layout_static_arrays(pidx, dev)
+    edge_rb = ((S // 2 + 12_345, 0), (S + 7, 1), (2 * S + 3, 2))
+
+    def phases(plan, P):
+        for ph_i in (0, 1):
+            ph = plan.phases[ph_i]
+            yield ph_i, ph, P, ph.kernel_buckets, ph.roll_buckets
+        ph = plan.phases[0]
+        yield "0_all", ph, P, (), tuple(sorted(
+            ph.kernel_buckets + ph.roll_buckets, key=lambda b: b[1]))
+        yield "edge", ph, 5, ph.kernel_buckets, edge_rb
+
+    def n_words(P):
+        return 1 if P == 1 else -(-P // 4)
+
+    p1d = plans["1d"]
+    xs = torch.from_numpy((rng.standard_normal(S) * 100).astype(np.float32)).to(dev)
+    eta = float(p1d.sweep_eta[0])
+    for ph_i, ph, P, kb, rb in phases(p1d, p1d.proposals):
+        key_words = sweep_key_table(key_data(5), 1, P)[0]
+        words, _ = sample_words(sampler_consts(ph, False, dev), key_words,
+                                False, rank, cnt, 1.0)
+        sums = bucket_apply(xs, pos, words, eta, kb, P) if kb else (None, None)
+        # xs, pos, dsum, csum and the words in, xs out
+        yield dict(dims=1, phase_of_plan=ph_i, P=P, kb=kb, rb=rb,
+                   kernel="roll_apply",
+                   words_in=2 + 2 * bool(kb) + n_words(P), words_out=1,
+                   args=(xs, pos, words, eta, rb, P, *sums))
+        del words, sums
+    del xs
+    for D in (2, 3):
+        plan = plans[D]
+        eta = float(plan.sweep_eta[0])
+        cs = torch.from_numpy(np.concatenate([
+            bench_layout_coords(rng, pidx.step_pos.astype(np.float32), D)
+            for _ in range(2)])).to(dev)
+        for ph_i, ph, P, kb, rb in phases(plan, plan.proposals):
+            if ph_i == "edge" and D != 2:
+                continue
+            key_words = sweep_key_table(key_data(6), 1, P)[0]
+            words, coin = sample_words(sampler_consts(ph, False, dev),
+                                       key_words, False, rank, cnt, 1.0,
+                                       coin=True)
+            my_pos, lane0, my_c = chosen_ends(cs, pos, length, rev, coin)
+            sums = (dense_apply_nd(my_pos, words, my_c, eta, kb, P) if kb
+                    else (None, None))
+            # my_pos, my_c, lane0's byte, cs, acc, wacc and the words in,
+            # cs out
+            yield dict(dims=D, phase_of_plan=ph_i, P=P, kb=kb, rb=rb,
+                       kernel="roll_apply_nd",
+                       words_in=(1 + D + 0.25 + 2 * D + (D + 1) * bool(kb)
+                                 + n_words(P)),
+                       words_out=2 * D,
+                       args=(my_pos, my_c, lane0, cs, words, eta, rb, P,
+                             *sums))
+            del words, coin, my_pos, lane0, my_c, sums
+        del cs

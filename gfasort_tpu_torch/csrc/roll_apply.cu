@@ -23,9 +23,11 @@
 //
 // What bounds it on the card: bytes for a few roll buckets (each step
 // reads its own state and, per bucket, the two partners' position, state
-// and choice words, most of them from L2), operations for many (two pair
-// evaluations per bucket, each with an IEEE divide, and in nD a square
-// root and a second divide).
+// and choice words, most of them from L2), integer operations for many
+// (per pair the field match over P proposals, mine and the partner's;
+// chip_smoke.py::match_ops counts it per word) beside the f32 work (two
+// pair evaluations per bucket, each with an IEEE divide, and in nD a
+// square root and a second divide).
 //
 // Design: one thread per step, the step's own state and fields in
 // registers, the partners read directly at t +- k (no rolled copies).
@@ -34,6 +36,17 @@
 // round-to-nearest intrinsic in the plain version's order (and the build
 // passes --fmad=false); the nD rsqrt is 1 / sqrt, both correctly
 // rounded, as the plain version computes it.
+// The 1D kernel counts a pair's matching fields a 4-byte word
+// at a time: the word XOR the broadcast byte of ki (or ~ki) has a zero
+// byte exactly where a field matches, found without carries by
+// ~(((v & 0x7F7F7F7F) + 0x7F7F7F7F) | v) & 0x80808080; the partner's
+// mask is ORed in where the guard holds, the unused fields of the last
+// word are masked off (they hold 0, which ki = 0 would match), the
+// words' masks are shifted into distinct bits and one __popc counts
+// them.  INACTIVE8 (127) matches no ki < 64 and no ~ki.  It is
+// templated on the word count (P = 1 compares the raw choices) and
+// indexes in 32 bits: the host passes k mod S and the ahead guard's
+// limit S - k per bucket.  The nD kernel keeps the per-field count.
 // Left for later: evaluating each pair once (the bucket kernels' pair
 // table does not reach partners k > KMAX away).
 
@@ -64,6 +77,9 @@ struct RollParams {
   float eta;
   int k[kMaxBuckets];
   int ki[kMaxBuckets];
+  int kmod[kMaxBuckets];      // k mod S
+  int ahead[kMaxBuckets];     // the ahead guard t + k < S as t < ahead
+  uint32_t last_live;         // 1D: the used fields' top bits, last word
 };
 
 // Signed choice of proposal p: the raw choice (P == 1) or the signed
@@ -166,36 +182,89 @@ __device__ __forceinline__ long long roll_index(long long t, long long shift,
   return j;
 }
 
-template <bool PACKED>
+// 0x80 in each 8-bit field of w equal to the broadcast byte b4, 0
+// elsewhere and outside `live` (carry-free: no false matches).
+__device__ __forceinline__ uint32_t eq_fields(uint32_t w, uint32_t b4,
+                                              uint32_t live) {
+  const uint32_t v = w ^ b4;
+  return ~(((v & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | v) & live;
+}
+
+// The 1D weight of a pair, a word at a time: the proposals whose own
+// field is the byte `mine` (broadcast), or, where `guard` holds, whose
+// partner's field is `theirs`.  NW == 0: the raw choices (P == 1).
+template <int NW>
+__device__ __forceinline__ float weight_words(const uint32_t (&wa)[kMaxWords],
+                                              const uint32_t (&wb)[kMaxWords],
+                                              uint32_t mine, uint32_t theirs,
+                                              bool guard, uint32_t last_live) {
+  if (NW == 0) {
+    return wa[0] == mine || (guard && wb[0] == theirs) ? 1.0f : 0.0f;
+  }
+  const uint32_t g = guard ? 0xFFFFFFFFu : 0u;
+  uint32_t m = 0u;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    const uint32_t live = j == NW - 1 ? last_live : 0x80808080u;
+    // fields of word j land on bits 7 - j, 15 - j, 23 - j, 31 - j
+    m |= (eq_fields(wa[j], mine, live) | (eq_fields(wb[j], theirs, live) & g))
+         >> j;
+  }
+  return __int2float_rn(__popc(m));
+}
+
+template <int NW>
+__device__ __forceinline__ void load_words_n(const RollParams& prm, int i,
+                                             uint32_t (&w)[kMaxWords]) {
+#pragma unroll
+  for (int j = 0; j < (NW == 0 ? 1 : NW); ++j) {
+    w[j] = static_cast<uint32_t>(__ldg(prm.words[j] + i));
+  }
+}
+
+// NW: choice words per step (1-4), 0 for the raw choices of P == 1.
+template <int NW>
 __global__ void __launch_bounds__(kThreads)
 roll_apply_kernel(const RollParams prm) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long S = prm.S;
+  const int S = prm.S;
+  const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= S) return;
-  const float x = prm.xs[t];
-  const float p = prm.pos[t];
-  int mine[kMaxWords];
-  load_words<PACKED>(prm, t, mine);
-  float dsum = prm.acc_in ? prm.acc_in[t] : 0.0f;
-  float csum = prm.w_in ? prm.w_in[t] : 0.0f;
+  const float* __restrict__ xs = prm.xs;
+  const float* __restrict__ pos = prm.pos;
+  const float x = __ldg(xs + t);
+  const float p = __ldg(pos + t);
+  uint32_t mine[kMaxWords];
+  load_words_n<NW>(prm, t, mine);
+  float dsum = prm.acc_in ? __ldg(prm.acc_in + t) : 0.0f;
+  float csum = prm.w_in ? __ldg(prm.w_in + t) : 0.0f;
   for (int b = 0; b < prm.n_buckets; ++b) {
-    const long long k = prm.k[b];
+    // the partners at (t + k) mod S and (t - k) mod S
+    const int km = prm.kmod[b];
+    const uint32_t ja_u = static_cast<uint32_t>(t) + static_cast<uint32_t>(km);
+    const int ja = static_cast<int>(
+        ja_u >= static_cast<uint32_t>(S) ? ja_u - static_cast<uint32_t>(S) : ja_u);
+    const int jb = t >= km ? t - km : t - km + S;
     const int ki = prm.ki[b];
-    // partner ahead (t + k): I chose +k, or they chose -k
-    long long j = roll_index(t, k, S);
-    int theirs[kMaxWords];
-    load_words<PACKED>(prm, j, theirs);
+    // the choices as compared: raw (P == 1) or the byte broadcast
+    const uint32_t plus = NW == 0 ? static_cast<uint32_t>(ki)
+                                  : (static_cast<uint32_t>(ki) & 0xFFu) * 0x01010101u;
+    const uint32_t minus = NW == 0 ? static_cast<uint32_t>(~ki)
+                                   : (static_cast<uint32_t>(~ki) & 0xFFu) * 0x01010101u;
+    uint32_t wa[kMaxWords], wb[kMaxWords];
+    load_words_n<NW>(prm, ja, wa);
+    load_words_n<NW>(prm, jb, wb);
+    const float xa = __ldg(xs + ja), pa = __ldg(pos + ja);
+    const float xb = __ldg(xs + jb), pb = __ldg(pos + jb);
     float w1, w2;
+    // partner ahead (t + k): I chose +k, or they chose -k
     const float u1 = half_1d(
-        x, p, prm.xs[j], prm.pos[j],
-        weight<PACKED>(mine, theirs, ki, ~ki, t + k < S, prm.proposals),
+        x, p, xa, pa,
+        weight_words<NW>(mine, wa, plus, minus, t < prm.ahead[b], prm.last_live),
         prm.eta, w1);
     // partner behind (t - k): I chose -k, or they chose +k
-    j = roll_index(t, -k, S);
-    load_words<PACKED>(prm, j, theirs);
     const float u2 = half_1d(
-        x, p, prm.xs[j], prm.pos[j],
-        weight<PACKED>(mine, theirs, ~ki, ki, t >= k, prm.proposals),
+        x, p, xb, pb,
+        weight_words<NW>(mine, wb, minus, plus, t >= prm.k[b], prm.last_live),
         prm.eta, w2);
     dsum = __fadd_rn(__fadd_rn(dsum, u1), u2);
     csum = __fadd_rn(__fadd_rn(csum, w1), w2);
@@ -293,7 +362,11 @@ int check_and_fill(RollParams& prm, int device, const float* xs,
   for (int b = 0; b < kMaxBuckets; ++b) {
     prm.k[b] = b < n_buckets ? ks[b] : 0;
     prm.ki[b] = b < n_buckets ? kis[b] : 0;
+    prm.kmod[b] = prm.k[b] % S;
+    prm.ahead[b] = prm.k[b] < S ? S - prm.k[b] : 0;
   }
+  const int used = proposals - 4 * (n_words - 1);   // fields of the last word
+  prm.last_live = 0x80808080u >> (8 * (4 - used));
   return 0;
 }
 
@@ -326,10 +399,12 @@ extern "C" int gfasort_roll_apply(
   if (err != 0) return err;
   const int blocks = (S + kThreads - 1) / kThreads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (proposals == 1) {
-    roll_apply_kernel<false><<<blocks, kThreads, 0, st>>>(prm);
-  } else {
-    roll_apply_kernel<true><<<blocks, kThreads, 0, st>>>(prm);
+  switch (proposals == 1 ? 0 : n_words) {
+    case 0: roll_apply_kernel<0><<<blocks, kThreads, 0, st>>>(prm); break;
+    case 1: roll_apply_kernel<1><<<blocks, kThreads, 0, st>>>(prm); break;
+    case 2: roll_apply_kernel<2><<<blocks, kThreads, 0, st>>>(prm); break;
+    case 3: roll_apply_kernel<3><<<blocks, kThreads, 0, st>>>(prm); break;
+    default: roll_apply_kernel<4><<<blocks, kThreads, 0, st>>>(prm); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,8 +22,8 @@ import tempfile
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "nvcc_path", "build", "ptxas_report", "library",
-           "bind_entry",
+__all__ = ["NVCC_FLAGS", "nvcc_path", "build", "ptxas_report", "sass_mix",
+           "library", "bind_entry",
            "bucket_apply_cuda", "dense_apply_nd_cuda", "sweep_apply_cuda",
            "shift_sum_cuda", "sweep_sampler_cuda", "roll_apply_cuda",
            "roll_apply_nd_cuda"]
@@ -130,6 +130,84 @@ def ptxas_report(log: str) -> list:
         if len(names) == len(rows):
             for r, name in zip(rows, names):
                 r["kernel"] = name.replace("(anonymous namespace)::", "")
+    except (OSError, RuntimeError, subprocess.CalledProcessError):
+        pass   # keep the mangled names
+    return rows
+
+
+# SASS opcode classes of :func:`sass_mix`, by the opcode's first word
+SASS_CLASSES = {
+    "IMAD": ("IMAD",),
+    "LOP3/SHF/IADD": ("LOP3", "SHF", "IADD3", "LEA", "ISETP", "SEL", "IMNMX",
+                      "PRMT", "SGXT", "VIMNMX", "IABS"),
+    "I2F/F2I": ("I2F", "F2I", "I2FP", "F2IP", "FRND", "I2I"),
+    "MUFU": ("MUFU",),
+    "POPC/FLO": ("POPC", "FLO", "BREV"),
+    "FFMA/FMUL/FADD": ("FFMA", "FMUL", "FADD", "FSETP", "FMNMX", "FSEL",
+                       "FCHK", "FSET"),
+    "LDS": ("LDS",),
+    "LDG/STG": ("LDG", "STG", "LD", "ST", "LDC", "ULDC"),
+    "BRA": ("BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET", "WARPSYNC"),
+}
+
+
+def _cuobjdump() -> str:
+    """The toolkit's ``cuobjdump`` (beside ``nvcc``), else the copy in
+    Triton's wheel.  Raises when there is none."""
+    try:
+        found = pathlib.Path(nvcc_path()).with_name("cuobjdump")
+        if found.exists():
+            return str(found)
+    except RuntimeError:
+        pass
+    import importlib.util
+
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.origin:
+        found = (pathlib.Path(spec.origin).parent / "backends" / "nvidia" /
+                 "bin" / "cuobjdump")
+        if found.exists():
+            return str(found)
+    raise RuntimeError("cuobjdump not found: no SASS to count")
+
+
+def sass_mix(lib_path, pattern: str = "") -> dict:
+    """Static SASS opcode counts of the kernels in ``lib_path`` whose
+    mangled name contains ``pattern``: {kernel: {"total": n, class: n,
+    ..., "opcodes": {opcode: n}}}, classes as in ``SASS_CLASSES``
+    (``NOP`` padding left out).  Counts are per compiled instruction,
+    not per executed one: a loop body counts once."""
+    out = subprocess.run([_cuobjdump(), "-sass", str(lib_path)],
+                         capture_output=True, text=True, check=True).stdout
+    mixes, cur = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = None
+            if pattern in m.group(1):
+                cur = mixes.setdefault(m.group(1), {})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                     line)
+        if cur is None or not m:
+            continue
+        op = m.group(1).split(".")[0]
+        if op != "NOP":
+            cur[op] = cur.get(op, 0) + 1
+    rows = {}
+    for name, ops in mixes.items():
+        row = {"total": sum(ops.values())}
+        for cls, members in SASS_CLASSES.items():
+            row[cls] = sum(n for op, n in ops.items() if op in members)
+        row["opcodes"] = dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+        rows[name] = row
+    try:
+        cufilt = pathlib.Path(nvcc_path()).with_name("cu++filt")
+        names = subprocess.run([str(cufilt)] + list(rows), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+        if len(names) == len(rows):
+            rows = {n.replace("(anonymous namespace)::", ""): r
+                    for n, r in zip(names, rows.values())}
     except (OSError, RuntimeError, subprocess.CalledProcessError):
         pass   # keep the mangled names
     return rows
@@ -265,14 +343,15 @@ def shift_sum_cuda(x, halo: int, variant: str):
     return out
 
 
-
 def sweep_sampler_cuda(consts, key_words, cooling: bool, rank, cnt,
-                       active_frac: float, snap: str, coin: bool):
+                       active_frac: float, snap: str, coin: bool,
+                       entry=None):
     """Launch the per-sweep sampler kernel on the current stream: (the
     choice words, the end coin or None).  Inputs are validated by the
     caller (``ops/sweep_common.sample_words``); ``consts`` is the
-    phase's ``SamplerConsts`` on the same device."""
-    lib = library()
+    phase's ``SamplerConsts`` on the same device; ``entry`` as in
+    :func:`bucket_apply_cuda`."""
+    entry = entry or library().gfasort_sweep_sampler
     S = rank.shape[0]
     P = len(key_words)
     n_words = 1 if P == 1 else -(-P // 4)
@@ -285,7 +364,7 @@ def sweep_sampler_cuda(consts, key_words, cooling: bool, rank, cnt,
     # the activity coin as sample_blocks draws it; -1: every proposal on
     thresh = int(active_frac * (1 << 20)) if active_frac < 1.0 else -1
     stream = torch.cuda.current_stream(rank.device).cuda_stream
-    err = lib.gfasort_sweep_sampler(
+    err = entry(
         rank.device.index, rank.data_ptr(), cnt.data_ptr(), S,
         consts.offs.data_ptr(), consts.zeta.data_ptr(),
         consts.eta_z.data_ptr(), consts.zeta2theta.data_ptr(),
@@ -298,17 +377,17 @@ def sweep_sampler_cuda(consts, key_words, cooling: bool, rank, cnt,
     return words, end_coin
 
 
-
 def roll_apply_cuda(xs, pos, words, eta: float, buckets, proposals: int,
-                    dsum, csum):
+                    dsum, csum, entry=None):
     """Launch the 1D roll-pass-and-combine kernel on the current stream:
     the new xs.  Inputs are validated by the caller
-    (``ops/roll_apply.roll_apply``); ``dsum``/``csum`` may be None (+0)."""
-    lib = library()
+    (``ops/roll_apply.roll_apply``); ``dsum``/``csum`` may be None (+0);
+    ``entry`` as in :func:`bucket_apply_cuda`."""
+    entry = entry or library().gfasort_roll_apply
     out = torch.empty_like(xs)
     ks, kis, nb = _bucket_arrays(buckets)
     stream = torch.cuda.current_stream(xs.device).cuda_stream
-    err = lib.gfasort_roll_apply(
+    err = entry(
         xs.device.index, xs.data_ptr(), pos.data_ptr(), *_word_ptrs(words),
         len(words), proposals, xs.shape[0], float(eta), ks, kis, nb,
         dsum.data_ptr() if dsum is not None else None,
@@ -319,17 +398,17 @@ def roll_apply_cuda(xs, pos, words, eta: float, buckets, proposals: int,
 
 
 def roll_apply_nd_cuda(my_pos, my_c, lane0, cs, words, eta: float, buckets,
-                       proposals: int, acc, wacc):
+                       proposals: int, acc, wacc, entry=None):
     """Launch the nD roll-pass-and-combine kernel on the current stream:
     the new cs [2D, S].  Inputs are validated by the caller
     (``ops/roll_apply.roll_apply_nd``); ``acc``/``wacc`` may be None
-    (+0)."""
-    lib = library()
+    (+0); ``entry`` as in :func:`bucket_apply_cuda`."""
+    entry = entry or library().gfasort_roll_apply_nd
     D, S = my_c.shape
     out = torch.empty_like(cs)
     ks, kis, nb = _bucket_arrays(buckets)
     stream = torch.cuda.current_stream(my_pos.device).cuda_stream
-    err = lib.gfasort_roll_apply_nd(
+    err = entry(
         my_pos.device.index, my_pos.data_ptr(), my_c.data_ptr(), D,
         lane0.data_ptr(), cs.data_ptr(), *_word_ptrs(words), len(words),
         proposals, S, float(eta), ks, kis, nb,

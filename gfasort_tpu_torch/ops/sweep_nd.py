@@ -12,9 +12,10 @@ larger offsets and the move of the chosen end's rows by
 ``consensus_every`` sweeps the node consensus averages each (node, end,
 dimension) row.  The schedule runs eagerly from Python, as in the 1D
 engine, executing the sweeps the JAX engine's dispatch chunking
-executes (``SweepPlan.n_exec``); its runner cache is not ported.  At
-float64 every bucket runs as a plain roll pass and the plain sampler
-draws threefry bits, as in the JAX engine.
+executes (``SweepPlan.n_exec``); ``build_sweep_nd_runner`` memoizes its
+runners through :mod:`.runner_cache` (key ``"sweepnd"``), as the JAX
+engine does.  At float64 every bucket runs as a plain roll pass and the
+plain sampler draws threefry bits, as in the JAX engine.
 """
 
 from __future__ import annotations

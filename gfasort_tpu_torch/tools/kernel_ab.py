@@ -3,22 +3,26 @@
     python -m gfasort_tpu_torch.tools.kernel_ab OLD_DIR [OLD_DIR ...]
 
 Each ``OLD_DIR`` holds earlier versions of some of ``bucket_apply.cu``,
-``dense_apply_nd.cu`` and ``sweep_apply.cu`` with the same C interfaces,
-for example a parent commit's (``git show
-REV:gfasort_tpu_torch/csrc/sweep_apply.cu``) or a variant of the current
-source.  nvcc builds the sources each one holds with the port's flags
-into ``OLD_DIR/_build``, their C entry points renamed so that every
-build loads into one process.  A kernel is run only where some
-``OLD_DIR`` holds its source.  The cases are those of ``chip_smoke.py``'s
-``kernel``, ``kernel_nd`` and ``sweep_apply`` phases, from the same seeds
-in the same order: S = 4M steps of the bench index, the bench plans'
-phases 0 and 1; P = 12 and 1 in 1D; D = 2 with P = 8, D = 3 with P = 4
-and D = 2 with P = 1 in nD; the fused apply over the full offset sets at
-the first and the last sweep's eta.  In every case every build must
-equal the plain version bit for bit; each is then timed in turns (the
-old builds in order, the current one twice, the old ones in reverse)
-with CUDA events.  Prints each old build's ptxas report, one JSON line
-per case and the card line; needs a CUDA device.
+``dense_apply_nd.cu``, ``sweep_apply.cu``, ``sweep_sampler.cu`` and
+``roll_apply.cu`` with the same C interfaces, for example a parent
+commit's (``git show REV:gfasort_tpu_torch/csrc/sweep_sampler.cu``) or a
+variant of the current source.  nvcc builds the sources each one holds
+with the port's flags into ``OLD_DIR/_build``, their C entry points
+renamed so that every build loads into one process.  A kernel is run
+only where some ``OLD_DIR`` holds its source.  The cases are those of
+``chip_smoke.py``'s ``kernel``, ``kernel_nd``, ``sweep_apply``,
+``sampler`` and ``roll`` phases, from the same seeds in the same order:
+S = 4M steps of the bench index, the bench plans' phases 0 and 1; P = 12
+and 1 in 1D; D = 2 with P = 8, D = 3 with P = 4 and D = 2 with P = 1 in
+nD; the fused apply over the full offset sets at the first and the last
+sweep's eta; the sampler's cases of ``bench_util.sampler_cases`` (every
+one checked, each plan's and edge's main case timed); the roll kernels'
+of ``bench_util.roll_cases``.  In every case every build must equal the
+plain version bit for bit; each is then timed in turns (the old builds
+in order, the current one twice, the old ones in reverse) with CUDA
+events.  Prints each build's ptxas report and the static SASS opcode
+mix of the kernels it runs (``kernels.sass_mix``), one JSON line per
+timed case and the card line; needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,7 +40,10 @@ import torch
 
 from .. import kernels
 from ..bench_util import (BENCH_SHAPE, bench_layout_coords, contract_choices,
-                          cuda_ms, fused_cases, synthetic_path_index)
+                          cuda_ms, fused_cases, roll_cases, sampler_cases,
+                          synthetic_path_index)
+from ..ops.roll_apply import roll_apply_nd_ref, roll_apply_ref
+from ..ops.sweep_common import sample_words_ref
 from ..ops.sweep_dense import bucket_apply_ref, dense_apply_nd_ref
 from ..ops.sweep_fused import sweep_apply_ref
 from ..ops.sweep_plan import make_layout_plan, make_sweep_plan
@@ -44,28 +51,37 @@ from ..params import LayoutSGDParams, PathSGDParams
 
 __all__ = ["SOURCES", "build_old", "cases", "main"]
 
-# kind of case -> (source, C entry point)
-SOURCES = {"1d": ("bucket_apply.cu", "gfasort_bucket_apply"),
-           "nd": ("dense_apply_nd.cu", "gfasort_dense_apply_nd"),
-           "fused": ("sweep_apply.cu", "gfasort_sweep_apply")}
+# kind of case -> (source, C entry point, its kernel's name in the SASS)
+SOURCES = {"1d": ("bucket_apply.cu", "gfasort_bucket_apply",
+                  "bucket_apply_kernel"),
+           "nd": ("dense_apply_nd.cu", "gfasort_dense_apply_nd",
+                  "dense_apply_nd_kernel"),
+           "fused": ("sweep_apply.cu", "gfasort_sweep_apply",
+                     "sweep_apply_kernel"),
+           "sampler": ("sweep_sampler.cu", "gfasort_sweep_sampler",
+                       "sweep_sampler_kernel"),
+           "roll": ("roll_apply.cu", "gfasort_roll_apply",
+                    "roll_apply_kernel"),
+           "roll_nd": ("roll_apply.cu", "gfasort_roll_apply_nd",
+                       "roll_apply_nd_kernel")}
 
 
 def build_old(src_dir: pathlib.Path, suffix: str):
     """Build the sources ``src_dir`` holds into one library with their
     entry points renamed by ``suffix``.  Returns ({kind: entry point},
-    the ptxas report)."""
-    kinds = [kind for kind, (src, _) in SOURCES.items()
+    the ptxas report, the library's path)."""
+    kinds = [kind for kind, (src, _, _) in SOURCES.items()
              if (src_dir / src).exists()]
     if not kinds:
         raise FileNotFoundError(f"{src_dir} holds none of "
-                                f"{[src for src, _ in SOURCES.values()]}")
+                                f"{sorted({v[0] for v in SOURCES.values()})}")
+    srcs = sorted({SOURCES[kind][0] for kind in kinds})
     nvcc = kernels.nvcc_path()
     out = src_dir / "_build"
     out.mkdir(exist_ok=True)
-    rename = [f"-D{name}={name}{suffix}" for _, name in SOURCES.values()]
+    rename = [f"-D{name}={name}{suffix}" for _, name, _ in SOURCES.values()]
     objs, procs = [], []
-    for kind in kinds:
-        src = SOURCES[kind][0]
+    for src in srcs:
         obj = str(out / (src[:-3] + ".o"))
         objs.append(obj)
         procs.append(subprocess.Popen(
@@ -73,25 +89,37 @@ def build_old(src_dir: pathlib.Path, suffix: str):
              str(src_dir / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = [proc.communicate()[0] for proc in procs]
-    for kind, proc, log in zip(kinds, procs, logs):
+    for src, proc, log in zip(srcs, procs, logs):
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCES[kind][0]}:\n{log}")
+            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
     lib_path = out / f"libold_kernels{suffix}.so"
     subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                     "-shared", "-o", str(lib_path), *objs], check=True)
     lib = ctypes.CDLL(str(lib_path))
     return ({kind: kernels.bind_entry(lib, SOURCES[kind][1], suffix)
              for kind in kinds},
-            kernels.ptxas_report("".join(logs)))
+            kernels.ptxas_report("".join(logs)), lib_path)
+
+
+def sass_rows(lib_path, kinds) -> dict:
+    """The static SASS mix (classes and totals, ``kernels.sass_mix``) of
+    the kernels of ``kinds`` in the library at ``lib_path``."""
+    rows = {}
+    for kind in sorted(kinds):
+        rows.update(kernels.sass_mix(lib_path, SOURCES[kind][2]))
+    return rows
 
 
 def cases(dev, kinds):
-    """(description, kind, inputs) of every case of the given kinds, one
-    at a time."""
+    """(description, kind, inputs, timed) of every case of the given
+    kinds, one at a time."""
     bench = synthetic_path_index(*BENCH_SHAPE, seed=0)
     S = bench.total_steps
     pos_np = bench.step_pos.astype(np.float32)
     plan = make_sweep_plan(bench, PathSGDParams().derive_from_graph(bench))
+    nd_plans = {D: make_layout_plan(bench, replace(
+        LayoutSGDParams().derive_from_graph(bench, D), iter_max=30))
+        for D in (2, 3)}
     if "1d" in kinds:
         rng = np.random.default_rng(0)
         xs = torch.from_numpy((rng.standard_normal(S) * 100).astype(np.float32)).to(dev)
@@ -103,11 +131,8 @@ def cases(dev, kinds):
                 words = [w.to(dev) for w in contract_choices(rng, S, buckets, P)]
                 yield (dict(kernel="bucket_apply", phase_of_plan=ph_i, S=S, P=P,
                             buckets=[list(b) for b in buckets]),
-                       "1d", (xs, pos, words, eta, buckets, P))
+                       "1d", (xs, pos, words, eta, buckets, P), True)
     if "nd" in kinds:
-        nd_plans = {D: make_layout_plan(bench, replace(
-            LayoutSGDParams().derive_from_graph(bench, D), iter_max=30))
-            for D in (2, 3)}
         rng = np.random.default_rng(1)
         pos = torch.from_numpy(pos_np).to(dev)
         for D, P in ((2, 8), (3, 4), (2, 1)):
@@ -119,14 +144,57 @@ def cases(dev, kinds):
                 words = [w.to(dev) for w in contract_choices(rng, S, buckets, P)]
                 yield (dict(kernel="dense_apply_nd", phase_of_plan=ph_i, S=S,
                             D=D, P=P, buckets=[list(b) for b in buckets]),
-                       "nd", (pos, words, my_c, eta, buckets, P))
+                       "nd", (pos, words, my_c, eta, buckets, P), True)
     if "fused" in kinds:
         for c in fused_cases(bench, plan, dev):
             flat = [a.reshape(-1) for a in c["args"]]
             yield (dict(kernel="sweep_apply", phase_of_plan=c["phase_of_plan"],
                         eta_of=c["eta_of"], eta=c["eta"],
                         S_pad=c["layout"]["S_pad"], offs=list(c["offs"])),
-                   "fused", (*flat, c["eta"], c["offs"], c["layout"]["H"]))
+                   "fused", (*flat, c["eta"], c["offs"], c["layout"]["H"]),
+                   True)
+    plans = {"1d": plan, **nd_plans}
+    if "sampler" in kinds:
+        for c in sampler_cases(bench, plans, dev):
+            yield (dict(kernel="sweep_sampler", S=S,
+                        **{k: c[k] for k in ("name", "phase_of_plan", "P",
+                                             "K", "coin", "cooling", "frac",
+                                             "snap")}),
+                   "sampler", (*c["args"], c["coin"]), c["main"])
+    if "roll" in kinds or "roll_nd" in kinds:
+        for c in roll_cases(bench, plans, dev):
+            kind = "roll" if c["dims"] == 1 else "roll_nd"
+            if kind in kinds:
+                yield (dict(kernel=c["kernel"], dims=c["dims"], S=S,
+                            phase_of_plan=c["phase_of_plan"], P=c["P"],
+                            kernel_buckets=len(c["kb"]),
+                            roll_buckets=[list(b) for b in c["rb"]]),
+                       kind, c["args"], True)
+
+
+def _sampler_cuda(consts, key_words, cooling, rank, cnt, frac, snap, coin,
+                  entry=None):
+    return kernels.sweep_sampler_cuda(consts, key_words, cooling, rank, cnt,
+                                      frac, snap, coin, entry=entry)
+
+
+def _sampler_ref(consts, key_words, cooling, rank, cnt, frac, snap, coin):
+    return sample_words_ref(consts, key_words, cooling, rank, cnt, frac, snap,
+                            coin=coin)
+
+
+def _flat(out) -> list:
+    """A kernel's outputs as a flat list of tensors (the sampler's words
+    and coin, the bucket kernels' pair of sums, one tensor)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    flat = []
+    for o in out:
+        if isinstance(o, (list, tuple)):
+            flat.extend(o)
+        elif o is not None:
+            flat.append(o)
+    return flat
 
 
 def main(argv=None) -> int:
@@ -138,38 +206,45 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    _, log = kernels.build()
+    new_lib, log = kernels.build()
     kernels.library()
-    print(json.dumps({"new_build": "csrc", "ptxas": kernels.ptxas_report(log)}),
-          flush=True)
-    olds = {}   # label -> {kind: entry point}
+    olds, old_libs = {}, {}   # label -> {kind: entry point}, library
     for i, arg in enumerate(argv):
         src_dir = pathlib.Path(arg).resolve()
         label = f"old{i}:{src_dir.name}"
-        olds[label], report = build_old(src_dir, f"_old{i}")
+        olds[label], report, old_libs[label] = build_old(src_dir, f"_old{i}")
         print(json.dumps({"old_build": label, "path": os.fspath(src_dir),
                           "kernels": sorted(olds[label]), "ptxas": report}),
               flush=True)
+    kinds = {kind for entries in olds.values() for kind in entries}
+    print(json.dumps({"new_build": "csrc", "ptxas": kernels.ptxas_report(log)}),
+          flush=True)
+    for label, lib_path in [("new", new_lib), *old_libs.items()]:
+        print(json.dumps({"sass_mix": label, "static_counts": True,
+                          "kernels": sass_rows(lib_path, kinds)}), flush=True)
     launch = {"1d": (kernels.bucket_apply_cuda, bucket_apply_ref),
               "nd": (kernels.dense_apply_nd_cuda, dense_apply_nd_ref),
-              "fused": (kernels.sweep_apply_cuda, sweep_apply_ref)}
-    kinds = {kind for entries in olds.values() for kind in entries}
-    for desc, kind, args in cases(dev, kinds):
+              "fused": (kernels.sweep_apply_cuda, sweep_apply_ref),
+              "sampler": (_sampler_cuda, _sampler_ref),
+              "roll": (kernels.roll_apply_cuda, roll_apply_ref),
+              "roll_nd": (kernels.roll_apply_nd_cuda, roll_apply_nd_ref)}
+    for desc, kind, args, timed in cases(dev, kinds):
         run, ref = launch[kind]
         builds = {label: entries[kind] for label, entries in olds.items()
                   if kind in entries}
         builds["new"] = None
-        want = ref(*args)
-        want = want if isinstance(want, tuple) else (want,)
+        want = _flat(ref(*args))
         for label, entry in builds.items():
-            got = run(*args, entry=entry)
-            got = got if isinstance(got, tuple) else (got,)
+            got = _flat(run(*args, entry=entry))
             torch.cuda.synchronize()
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            if len(got) != len(want) or not all(
+                    torch.equal(g, w) for g, w in zip(got, want)):
                 raise AssertionError(f"{label} kernel differs from the plain "
                                      f"version: {desc}")
             del got
         del want
+        if not timed:
+            continue
         order = list(builds) + list(reversed(builds))
         times = {label: [] for label in builds}
         for label in order:

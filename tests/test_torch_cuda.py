@@ -728,6 +728,46 @@ def test_sweep_sampler_kernel_matches_plain_version(cuda, sampler_workload, P,
         assert torch.equal(coin, ref_coin)
 
 
+@pytest.mark.parametrize("snap", ["stoch", "down"])
+@pytest.mark.parametrize("cooling", [False, True])
+@pytest.mark.parametrize("case", ["k64", "past_last", "p5"])
+def test_sweep_sampler_kernel_edges(cuda, sampler_workload, case, cooling,
+                                    snap):
+    """The sampler kernel's edges against the plain version on the card:
+    a 64-offset table (the deep search), the first phase's offsets cut to
+    their first half (z past the last offset: promotions to oidx = K) and
+    P = 5 with the end coin (three unused fields)."""
+    from gfasort_tpu_torch.bench_util import edge_phase, wide_offsets
+
+    pidx, p = sampler_workload
+    plan = make_sweep_plan(pidx, p, per_octave=2, dense_upto=4, rotate=4,
+                           proposals=12, active_frac=1.0)
+    offs0 = plan.phases[0].offs
+    phase, P = {
+        "k64": lambda: (edge_phase(pidx, p, wide_offsets(pidx, p)), 12),
+        "past_last": lambda: (edge_phase(pidx, p, offs0[: len(offs0) // 2]), 12),
+        "p5": lambda: (plan.phases[0], 5)}[case]()
+    rank = torch.from_numpy(pidx.step_rank.astype(np.int32)).to(cuda)
+    cnt = torch.from_numpy(pidx.step_count_of_step.astype(np.int32)).to(cuda)
+    key_words = fold_in(key_data(9), np.arange(P))
+    consts = sc.sampler_consts(phase, cooling, cuda)
+    before = sc.sample_words.launches
+    words, coin = sc.sample_words(consts, key_words, cooling, rank, cnt, 1.0,
+                                  snap, coin=True)
+    ref, ref_coin = sc.sample_words_ref(consts, key_words, cooling, rank, cnt,
+                                        1.0, snap, coin=True)
+    torch.cuda.synchronize()
+    assert sc.sample_words.launches == before + 1
+    assert len(words) == len(ref) == -(-P // 4)
+    for w, r in zip(words, ref):
+        assert torch.equal(w, r)
+    assert torch.equal(coin, ref_coin)
+    if case == "past_last" and snap == "stoch":
+        K = len(phase.offs)
+        assert any(bool((sc.unpack_choice(w, q) == K).any())
+                   for w in ref for q in range(4)), "no promotion to K"
+
+
 def _roll_case(rng, S, buckets, P, D=None):
     """Random state with repeated positions and coordinates (the zero
     guards) and choices with no contract (the wrap-around guard)."""
@@ -754,6 +794,9 @@ ROLL_CASES = {
     # an offset past the array (k mod S) and one past the tile
     "p4_wrap": (3_000, [(1, 0)], [(1500, 9), (3_007, 10)], 4),
     "p12_combine_only": (5_000, PHASE, [], 12),
+    # P = 5: the unused fields of the last word are 0, which ki = 0 would
+    # match; k > S / 2, k > S and k > 2S (partners read mod S)
+    "p5_ki0_far": (30_001, PHASE, [(15_123, 0), (30_008, 1), (60_005, 2)], 5),
 }
 
 

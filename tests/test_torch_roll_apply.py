@@ -5,11 +5,14 @@ sweep's kernels: ``roll_apply``, ``roll_apply_nd`` and the sampler's
 ``sweep_common.sample_words``.
 
 The model follows the kernel: each step reads its partners directly at
-(t + k) mod S and (t - k) mod S for every roll bucket, takes the
-choices from the packed words (field p of word p / 4; the raw choice for
-P = 1), guards the wrap-around on the partner's field only, evaluates
-every pair in full, sums per bucket ``acc + u1 + u2`` from the bucket
-kernel's sums (or +0), and combines.  The plain versions are held to the
+(t + k) mod S and (t - k) mod S for every roll bucket, counts a pair's
+matching choices (the 1D kernel a packed word at a time: a carry-free
+zero-byte test of the word XOR the broadcast byte of ki or ~ki, the
+partner's mask where the guard holds, the unused fields of the last
+word masked off, one popcount; the nD kernel field by field, field p of
+word p / 4; the raw choice for P = 1), guards the wrap-around on the
+partner's choice only, evaluates every pair in full, sums per bucket
+``acc + u1 + u2`` from the bucket kernel's sums (or +0), and combines.  The plain versions are held to the
 unjitted JAX sweeps by tests/test_torch_sweep.py and
 tests/test_torch_sweep_nd.py.  The kernel itself runs only on the card
 (tests/test_torch_cuda.py)."""
@@ -35,6 +38,7 @@ from gfasort_tpu_torch.ops.sweep_plan import make_sweep_plan  # noqa: E402
 from gfasort_tpu_torch.params import PathSGDParams  # noqa: E402
 
 F32 = np.float32
+U32 = np.uint32
 ETA = 0.9
 
 
@@ -48,10 +52,40 @@ def _fields(words, P):
 
 
 def _weight(fields, t, j, mine, theirs, guard):
+    """The nD kernel's count, field by field."""
     n = np.zeros(t.shape, np.int64)
     for f in fields:
         n += (f == mine) | (guard & (f[j] == theirs))
     return n.astype(F32)
+
+
+def _eq_fields(w, b4, live):
+    """0x80 in each 8-bit field of ``w`` equal to the broadcast byte
+    ``b4``, within ``live`` (the 1D kernel's carry-free zero-byte test)."""
+    v = w ^ b4
+    return ~(((v & U32(0x7F7F7F7F)) + U32(0x7F7F7F7F)) | v) & live
+
+
+def _weight_words(words, P, j, mine, theirs, guard):
+    """The 1D kernel's count, a packed word at a time (the raw choices
+    for P = 1): ``mine`` / ``theirs`` are the signed choices compared
+    with my own and the partner's."""
+    if P == 1:
+        w = words[0]
+        return ((w == mine) | (guard & (w[j] == theirs))).astype(F32)
+    nw = len(words)
+    used = P - 4 * (nw - 1)
+    last_live = U32(0x80808080) >> U32(8 * (4 - used))
+    b_mine = U32((mine & 0xFF) * 0x01010101)
+    b_theirs = U32((theirs & 0xFF) * 0x01010101)
+    g = np.where(guard, U32(0xFFFFFFFF), U32(0))
+    m = np.zeros(len(words[0]), U32)
+    for i, w in enumerate(words):
+        w = w.view(U32)
+        live = last_live if i == nw - 1 else U32(0x80808080)
+        m |= (_eq_fields(w, b_mine, live)
+              | (_eq_fields(w[j], b_theirs, live) & g)) >> U32(i)
+    return np.bitwise_count(m).astype(F32)
 
 
 def _base(pa, pb, weight):
@@ -71,7 +105,6 @@ def _sides(S, k):
 
 def model_roll_1d(xs, pos, words, buckets, P, dsum=None, csum=None):
     S = len(xs)
-    fields = _fields(words, P)
     dsum = np.zeros(S, F32) if dsum is None else dsum.copy()
     csum = np.zeros(S, F32) if csum is None else csum.copy()
     for k, ki in buckets:
@@ -80,7 +113,7 @@ def model_roll_1d(xs, pos, words, buckets, P, dsum=None, csum=None):
         for j, guard, sgn in sides:
             mine, theirs = (ki, ~ki) if sgn > 0 else (~ki, ki)
             w, safe, mu = _base(pos, pos[j],
-                                _weight(fields, t, j, mine, theirs, guard))
+                                _weight_words(words, P, j, mine, theirs, guard))
             dx = xs - xs[j]
             dx = np.where(dx == 0, F32(1e-9), dx)
             r = (mu * (np.abs(dx) - safe)) * np.where(dx >= 0, F32(0.5),
@@ -207,6 +240,35 @@ def test_model_equals_roll_apply_ref_1d(workload, P, kernel, words):
         assert want.dtype == torch.float32
         np.testing.assert_array_equal(got.view(np.int32),
                                       want.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("guard", ["on", "off", "mixed"])
+@pytest.mark.parametrize("P", [1, 4, 5, 8, 12, 16])
+def test_word_count_equals_field_count(P, guard):
+    """The 1D kernel's word-wise count equals the per-field count on
+    random words: every bucket index 0-63 (ki = 0 among them, which the
+    unused fields of a last word hold), INACTIVE8 and negative fields
+    present, the guard on, off and mixed."""
+    S = 4096
+    rng = np.random.default_rng(100 + P)
+    pool = np.array(list(range(64)) + [~ki for ki in range(64)]
+                    + [int(tsc.INACTIVE)] * 16, np.int32)
+    sidxs = [torch.from_numpy(pool[rng.integers(0, len(pool), S)])
+             for _ in range(P)]
+    words = [w.numpy() for w in tsc.pack_words(sidxs)]
+    fields = _fields(words, P)
+    if P > 1:
+        flat = np.concatenate(fields)
+        assert (flat == int(tsc.INACTIVE8)).any() and (flat < 0).any()
+    t = np.arange(S)
+    j = rng.permutation(S)
+    g = {"on": np.ones(S, bool), "off": np.zeros(S, bool),
+         "mixed": rng.integers(0, 2, S).astype(bool)}[guard]
+    for ki in (0, 1, 7, 63) if P > 1 else (0, 1, 7, 63, 1000):
+        for mine, theirs in ((ki, ~ki), (~ki, ki)):
+            np.testing.assert_array_equal(
+                _weight_words(words, P, j, mine, theirs, g),
+                _weight(fields, t, j, mine, theirs, g))
 
 
 CASES_ND = [(D, P, kernel, words)

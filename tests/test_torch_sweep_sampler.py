@@ -6,13 +6,17 @@ with the roll kernels').
 
 The model follows the kernel's per-step algorithm: the hash draws of
 each proposal in u32 arithmetic from its ``(b2, b1)`` words (the step
-index as the counter), the two direction chains computed once per step
-(the jump space and its bucket's Zipf constants, found by the kernel's
-binary search over the offsets), the Zipf or uniform draw in f32 in the
-plain version's order of rounded ops, the stochastic or the downward
-snap by the same search, the activity coin, and the packing (P = 1: the
-raw choices).  It also gives proposal 0's end coin.  The kernel itself
-runs only on the card (tests/test_torch_cuda.py)."""
+index as the counter; the first mix's product split as t * golden +
+b1 * golden), the two direction chains computed once per step (the jump
+space and its bucket's Zipf constants, found by the kernel's search),
+both the Zipf and the uniform draw in f32 in the plain version's order
+of rounded ops and one selected, the snap through the kernel's tables
+(a branch-free search of fixed depth over the offsets padded with
+INT_MAX to 128 entries, then per count c = oidx + 1 the snapped offset,
+the next one, the first as f32 and the span), the stochastic promotion
+or none, the activity coin, and the packing (P = 1: the raw choices).
+It also gives proposal 0's end coin.  The kernel itself runs only on
+the card (tests/test_torch_cuda.py)."""
 
 from dataclasses import replace
 
@@ -24,12 +28,16 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from gfasort_tpu.bench_util import synthetic_path_index  # noqa: E402
+from gfasort_tpu_torch import bench_util as tbu  # noqa: E402
 from gfasort_tpu.ops import sweep_common as jsc  # noqa: E402
 from gfasort_tpu.ops.fastpow import zeta_table  # noqa: E402
 from gfasort_tpu.params import PathSGDParams  # noqa: E402
 from gfasort_tpu_torch.ops import sweep_common as tsc  # noqa: E402
 from gfasort_tpu_torch.ops.keys import fold_in, key_data  # noqa: E402
-from gfasort_tpu_torch.ops.sweep_plan import make_sweep_plan  # noqa: E402
+from gfasort_tpu_torch.ops.sweep_plan import (make_layout_plan,  # noqa: E402
+                                              make_sweep_plan)
+from gfasort_tpu_torch.params import (LayoutSGDParams,  # noqa: E402
+                                      PathSGDParams as TPathSGDParams)
 
 F32 = np.float32
 U32 = np.uint32
@@ -40,9 +48,9 @@ SEED = 7
 PROPOSALS = (12, 8, 4, 1)
 
 
-def _mix(x):
-    """sweep_common._mix in u32 (numpy's u32 products wrap mod 2^32)."""
-    x = x * U32(0x9E3779B9)
+def _mix_tail(x):
+    """sweep_common._mix after its first product, in u32 (numpy's u32
+    products wrap mod 2^32)."""
     x = x ^ (x >> U32(16))
     x = x * U32(0x85EBCA6B)
     x = x ^ (x >> U32(13))
@@ -50,35 +58,51 @@ def _mix(x):
     return x ^ (x >> U32(16))
 
 
-def _snap_idx(offs, z):
-    """The kernel's binary search: the index of the largest offset <= z
-    (-1 where none is)."""
+def _mix(x):
+    """sweep_common._mix: the golden-ratio product, then the tail."""
+    return _mix_tail(x * U32(0x9E3779B9))
+
+
+def _search(offs):
+    """The kernel's search table (the offsets, then INT_MAX, 128
+    entries) and depth (4 steps for K <= 15, else 7)."""
+    tab = np.full(128, 0x7FFFFFFF, np.int64)
+    tab[: len(offs)] = offs
+    return tab, 4 if len(offs) < 16 else 7
+
+
+def _count_le(tab, depth, z):
+    """The kernel's branch-free search: the number of offsets <= z."""
+    c = np.zeros(np.shape(z), np.int64)
+    for s in (1 << i for i in range(depth - 1, -1, -1)):
+        c += np.where(tab[c + s - 1] <= z, s, 0)
+    return c
+
+
+def _snap_table(offs):
+    """The kernel's per-count entries, c = oidx + 1 in [0, K]: the
+    snapped offset offs[c - 1] (torch's wrap at c = 0), the next one
+    offs[min(c, K - 1)], the first as f32 and the span."""
     K = len(offs)
-    lo = np.zeros(z.shape, np.int64)
-    hi = np.full(z.shape, K, np.int64)
-    while (lo < hi).any():
-        live = lo < hi
-        mid = (lo + hi) >> 1
-        go = live & (offs[np.minimum(mid, K - 1)] <= z)
-        lo = np.where(go, mid + 1, lo)
-        hi = np.where(live & ~go, mid, hi)
-    return (lo - 1).astype(np.int32)
+    c = np.arange(K + 1)
+    i = np.where(c == 0, K - 1, c - 1)
+    lo = offs[i]
+    hi = offs[np.minimum(c, K - 1)]
+    lo_f = lo.astype(F32)
+    span = np.maximum(hi.astype(F32) - lo_f, F32(1.0))
+    return i, lo, hi, lo_f, span
 
 
-def _at(a, i):
-    """a[i] with torch's negative-index wrap."""
-    return a[np.where(i < 0, i + len(a), i)]
-
-
-def _zipf_core(u, js, zeta, eta_z, z2t, alpha):
-    n = np.maximum(js, 1).astype(F32)
+def _zipf_core(u, js, n, zeta, eta_z, z2t, alpha):
+    """n = max(js, 1) as f32, from the step's chain."""
     uz = u * zeta
     arg = (eta_z * u - eta_z) + F32(1.0)
     arg = np.where(arg < F32(1e-30), F32(1e-30), arg)
     with np.errstate(over="ignore"):   # inf, then clamped to n
         general = F32(1.0) + n * np.exp(alpha * np.log(arg))
-    general = np.where(np.isnan(general), F32(0.0), general)
-    general = np.minimum(np.maximum(general, F32(0.0)), n)
+    # NaN -> 0 and the clamps to [0, n] in one: fmax returns the operand
+    # that is not NaN
+    general = np.fmin(np.fmax(general, F32(0.0)), n)
     g = np.trunc(general).astype(np.int32)
     z = np.where(uz < F32(1.0), 1, np.where(uz < z2t, 2, g)).astype(np.int32)
     return np.minimum(z, js)
@@ -91,13 +115,17 @@ def model_sample_words(offs, zeta, eta_z, z2t, alpha, space, key_words,
     ``key_words`` [P, 2] u32 (b2, b1)."""
     S = len(rank)
     t = np.arange(S, dtype=U32)
+    tab, depth = _search(offs)
+    ci, lo_t, hi_t, lo_f_t, span_t = _snap_table(offs)
     avail_b = rank
     avail_f = cnt - 1 - rank
     chains = []
     for avail in (avail_b, avail_f):
         js = np.minimum(avail, space)
-        idx = _snap_idx(offs, np.maximum(js, 1))
-        chains.append((js, _at(zeta, idx), _at(eta_z, idx)))
+        js1 = np.maximum(js, 1)
+        c = _count_le(tab, depth, js1)
+        chains.append((js, zeta[ci[c]], eta_z[ci[c]], js1.astype(F32),
+                       np.maximum(avail, 1).astype(F32)))
     has_path = cnt > 1
     back_base = rank > 0
     last = rank == cnt - 1
@@ -107,8 +135,9 @@ def model_sample_words(offs, zeta, eta_z, z2t, alpha, space, key_words,
     packed = [np.zeros(S, U32) for _ in range(-(-P // 4))]
     raw = None
     coin = None
+    t_g = t * U32(0x9E3779B9)
     for p, (b2, b1) in enumerate(np.asarray(key_words, U32)):
-        h = _mix(t + b1)
+        h = _mix_tail(t_g + U32((int(b1) * 0x9E3779B9) & 0xFFFFFFFF))
         bits = _mix(h ^ b2)
         salt = U32((int(b2) * 0x9E3779B9 + 0x632BE59B) & 0xFFFFFFFF)
         u = (_mix(h ^ salt) >> U32(8)).astype(F32) * F32(2.0 ** -24)
@@ -118,23 +147,19 @@ def model_sample_words(offs, zeta, eta_z, z2t, alpha, space, key_words,
         backward = back_base & ((((bits >> U32(30)) & U32(1)) == 1) | last)
         forward = ~backward & not_last
         avail = np.where(backward, avail_b, avail_f)
-        js, zt, ez = (np.where(backward, b, f)
-                      for b, f in zip(chains[0], chains[1]))
-        z_zipf = _zipf_core(u, js, zt, ez, z2t, alpha)
-        z_unif = 1 + np.trunc(u * np.maximum(avail, 1).astype(F32)).astype(
-            np.int32)
+        js, zt, ez, n, av = (np.where(backward, b, f)
+                             for b, f in zip(chains[0], chains[1]))
+        z_zipf = _zipf_core(u, js, n, zt, ez, z2t, alpha)
+        z_unif = 1 + np.trunc(u * av).astype(np.int32)
         z = np.where(use_zipf, z_zipf, z_unif)
-        oidx = _snap_idx(offs, np.maximum(z, 1))
-        off_sel = _at(offs, oidx)
-        if snap == "stoch":
-            off_hi = offs[np.minimum(oidx + 1, len(offs) - 1)]
-            off_lo = off_sel.astype(F32)
-            u2 = ((bits >> U32(20)) & U32(0x1FF)).astype(F32) * F32(1 / 512)
-            qfrac = (z.astype(F32) - off_lo) / np.maximum(
-                off_hi.astype(F32) - off_lo, F32(1.0))
-            promote = (u2 < qfrac) & (off_hi <= avail)
-            oidx = np.where(promote, oidx + 1, oidx)
-            off_sel = np.where(promote, off_hi, off_sel)
+        c = _count_le(tab, depth, np.maximum(z, 1))
+        # u2 = field * 2^-9 exactly, as 1 + u2 - 1 from the field's bits
+        u2 = ((((bits >> U32(6)) & U32(0x1FF << 14)) | U32(0x3F800000))
+              .view(F32) - F32(1.0))
+        qfrac = (z.astype(F32) - lo_f_t[c]) / span_t[c]
+        promote = (snap == "stoch") & (u2 < qfrac) & (hi_t[c] <= avail)
+        oidx = c - 1 + promote
+        off_sel = np.where(promote, hi_t[c], lo_t[c])
         active = (forward | backward) & has_path & (off_sel <= avail)
         if thresh >= 0:
             active &= (bits & U32(0xFFFFF)).astype(np.int64) < thresh
@@ -246,3 +271,85 @@ def test_model_covers_degenerate_promotion(workload):
     assert any((f == K // 2).any() for f in fields), "no promotion past K - 1"
     for g, w in zip(got, ref):
         np.testing.assert_array_equal(g, w.numpy())
+
+
+def _edge_phase(pidx, p, case):
+    """The kernel's edge phases at the test size: K = 64 offsets over the
+    whole jump range, or the first plan phase at P = 5."""
+    if case == "k64":
+        tp = TPathSGDParams().derive_from_graph(pidx)
+        return tbu.edge_phase(pidx, tp, tbu.wide_offsets(pidx, tp)), 12
+    return _plan(pidx, p, 5).phases[0], 5
+
+
+@pytest.mark.parametrize("snap", ["stoch", "down"])
+@pytest.mark.parametrize("cooling", [False, True])
+@pytest.mark.parametrize("case", ["k64", "p5"])
+def test_model_edges_equal_jax(workload, monkeypatch, case, cooling, snap):
+    """The kernel's edges: a 64-offset table (the deep search) and P = 5
+    (three unused fields of the last word), bit for bit against the plain
+    version, and against JAX: P = 5 bit for bit; at K = 64 XLA's f32
+    ``exp`` / ``log`` (which differ from torch's in the last place on
+    10-16% of inputs) move a few Zipf draws across one of the many
+    closely spaced offsets, so at most 1 choice in 10^4 may differ."""
+    pidx, p, zetas, rank, cnt = workload
+    monkeypatch.setenv("GFASORT_SNAP", snap)
+    phase, P = _edge_phase(pidx, p, case)
+    assert len(phase.offs) == (64 if case == "k64" else len(phase.offs))
+    key_words = fold_in(key_data(SEED), np.arange(P))
+    (offs, zeta, eta_z, z2t, alpha, space), consts = _consts_np(phase, cooling)
+    got, coin = model_sample_words(offs, zeta, eta_z, z2t, alpha, space,
+                                   key_words, cooling, rank, cnt, 1.0, snap)
+    want, want_coin = _jax_words(phase, p, zetas, P, cooling, rank, cnt, 1.0)
+    differ = sum(int((tsc.unpack_choice(torch.tensor(g), q)
+                      != tsc.unpack_choice(torch.tensor(w), q)).sum())
+                 for g, w in zip(got, want) for q in range(4))
+    assert differ <= (P * len(rank) // 10_000 if case == "k64" else 0)
+    np.testing.assert_array_equal(coin, want_coin)
+    ref, _ = tsc.sample_words_ref(consts, key_words, cooling,
+                                  torch.from_numpy(rank),
+                                  torch.from_numpy(cnt), 1.0, snap)
+    for g, w in zip(got, ref):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+@pytest.fixture(scope="module")
+def bench_offsets():
+    """Every offset set of the bench-shape plans (1D, 2D and 3D layout,
+    each phase) and a 64-offset table over the bench's jump range, each
+    with the largest z to search: the plan's jump space (the uniform
+    draws reach avail + 1: twice that is searched too)."""
+    bench = tbu.synthetic_path_index(*tbu.BENCH_SHAPE, seed=0)
+    tp = TPathSGDParams().derive_from_graph(bench)
+    plans = [make_sweep_plan(bench, tp)] + [
+        make_layout_plan(bench, replace(
+            LayoutSGDParams().derive_from_graph(bench, D), iter_max=30))
+        for D in (2, 3)]
+    sets = [(ph.offs, ph.space) for plan in plans for ph in plan.phases]
+    sets.append((tbu.wide_offsets(bench, tp), tp.space))
+    del bench
+    return sets
+
+
+def test_snap_search_equals_searchsorted(bench_offsets):
+    """The kernel's search and per-count entries equal the plain
+    version's ``snap_idx_track`` (torch.searchsorted(right=True) - 1,
+    the negative index's wrap, offs[min(idx + 1, K - 1)]) for every z in
+    [0, 2 * space]: the bench-shape plans' phases and a K = 64 table,
+    including the degenerate promotion past the last offset (c = K)."""
+    assert any(len(o) == 64 for o, _ in bench_offsets)
+    for offs, space in bench_offsets:
+        K = len(offs)
+        z = np.arange(0, 2 * space + 1, dtype=np.int64)
+        tab, depth = _search(offs)
+        c = _count_le(tab, depth, np.maximum(z, 1))
+        _, lo, hi, lo_f, span = _snap_table(offs)
+        idx, lo_t, hi_t = tsc.snap_idx_track(
+            torch.from_numpy(offs), torch.from_numpy(z).int(), True)
+        np.testing.assert_array_equal(c - 1, idx.numpy())
+        np.testing.assert_array_equal(lo[c], lo_t.numpy())
+        np.testing.assert_array_equal(hi[c], hi_t.numpy())
+        np.testing.assert_array_equal(lo_f[c], lo_t.float().numpy())
+        span_t = torch.clamp_min(hi_t.float() - lo_t.float(), 1.0)
+        np.testing.assert_array_equal(span[c], span_t.numpy())
+        assert c.max() == K and (K >= 16) == (depth == 7)
