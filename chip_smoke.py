@@ -636,7 +636,7 @@ def ptxas_row(ptxas, name: str) -> dict:
     return {"kernel": name, "registers": None, "spill_bytes": None}
 
 
-def phase_sampler(bench, plans, card_line, ptxas, dev=None):
+def phase_sampler(bench, plans, card_line, ptxas):
     """The sampler kernel against its plain version on the card, on the
     bench index (its real rank and cnt), in every case of
     ``bench_util.sampler_cases`` (the 1D, 2D and 3D plans' P and P = 1 on
@@ -652,7 +652,7 @@ def phase_sampler(bench, plans, card_line, ptxas, dev=None):
     from gfasort_tpu_torch.ops.sweep_common import (sample_words,
                                                     sample_words_ref)
 
-    dev = dev or torch.device("cuda")
+    dev = torch.device("cuda")
     S = bench.total_steps
     results, checked = {}, {}
     for c in sampler_cases(bench, plans, dev):
@@ -689,7 +689,7 @@ def phase_sampler(bench, plans, card_line, ptxas, dev=None):
     return results
 
 
-def phase_roll(bench, plans, card_line, ptxas, dev=None):
+def phase_roll(bench, plans, card_line, ptxas):
     """Both roll kernels against their plain versions on the card, in
     every case of ``bench_util.roll_cases`` (the bench index with the
     sampler's words and the bucket kernels' sums; plan phases 0 and 1 at
@@ -703,7 +703,7 @@ def phase_roll(bench, plans, card_line, ptxas, dev=None):
                                                   roll_apply_nd_ref,
                                                   roll_apply_ref)
 
-    dev = dev or torch.device("cuda")
+    dev = torch.device("cuda")
     S = bench.total_steps
     results = {}
     for c in roll_cases(bench, plans, dev):

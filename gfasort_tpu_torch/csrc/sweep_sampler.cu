@@ -71,7 +71,9 @@ constexpr int kInactive8 = 127;               // sweep_common.INACTIVE8
 constexpr int kThreads = 256;
 // the search table: a power of two above kMaxOffsets
 constexpr int kTable = 128;
-// search depths: K <= 15 (every plan's phase) and K <= 127
+// search depths: K <= 15 (every plan's phase) and K <= 127.  Depth 7
+// alone is 5-9% slower at K <= 15 (3 wasted steps in each of the 2 + P
+// searches a step; tools/kernel_ab.py, NVIDIA H100)
 constexpr int kShallow = 4;
 constexpr int kDeep = 7;
 constexpr uint32_t kGolden = 0x9E3779B9u;
@@ -124,10 +126,12 @@ __device__ __forceinline__ uint32_t mix(uint32_t x) {
 // One step of the offset search per STEP = 2^(D-1) .. 1: load the entry
 // STEP - 1 past the running shared-memory address, and where it is <= z
 // move the address STEP entries on.  Written in PTX so that each step is
-// a load with an immediate offset, a compare and a predicated add.
+// a load with an immediate offset, a compare and a predicated add.  The
+// asm is volatile: it reads shared memory that the block wrote before
+// its barrier, and a volatile asm is never moved across __syncthreads().
 template <int STEP>
 __device__ __forceinline__ void search_steps(uint32_t& addr, int z) {
-  asm("{\n\t.reg .s32 v;\n\t.reg .pred q;\n\t"
+  asm volatile("{\n\t.reg .s32 v;\n\t.reg .pred q;\n\t"
       "ld.shared.s32 v, [%0+%2];\n\t"
       "setp.le.s32 q, v, %1;\n\t"
       "@q add.u32 %0, %0, %3;\n\t}"
@@ -137,9 +141,7 @@ __device__ __forceinline__ void search_steps(uint32_t& addr, int z) {
 
 // The number of offsets <= z, i.e. torch.searchsorted(offs, z,
 // right=True): a branch-free search of fixed depth over the padded table
-// (INT_MAX past the offsets; z < INT_MAX).  The asm reads shared memory
-// the block wrote before its barrier; z depends on loads after it, so
-// the compiler cannot hoist the search above the barrier.
+// (INT_MAX past the offsets; z < INT_MAX).
 template <int DEPTH>
 __device__ __forceinline__ int count_le(const int* tab, int z) {
   const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(tab));

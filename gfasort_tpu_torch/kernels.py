@@ -22,8 +22,8 @@ import tempfile
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "nvcc_path", "build", "ptxas_report", "sass_mix",
-           "library", "bind_entry",
+__all__ = ["NVCC_FLAGS", "nvcc_path", "build", "ptxas_report", "library",
+           "bind_entry",
            "bucket_apply_cuda", "dense_apply_nd_cuda", "sweep_apply_cuda",
            "shift_sum_cuda", "sweep_sampler_cuda", "roll_apply_cuda",
            "roll_apply_nd_cuda"]
@@ -130,84 +130,6 @@ def ptxas_report(log: str) -> list:
         if len(names) == len(rows):
             for r, name in zip(rows, names):
                 r["kernel"] = name.replace("(anonymous namespace)::", "")
-    except (OSError, RuntimeError, subprocess.CalledProcessError):
-        pass   # keep the mangled names
-    return rows
-
-
-# SASS opcode classes of :func:`sass_mix`, by the opcode's first word
-SASS_CLASSES = {
-    "IMAD": ("IMAD",),
-    "LOP3/SHF/IADD": ("LOP3", "SHF", "IADD3", "LEA", "ISETP", "SEL", "IMNMX",
-                      "PRMT", "SGXT", "VIMNMX", "IABS"),
-    "I2F/F2I": ("I2F", "F2I", "I2FP", "F2IP", "FRND", "I2I"),
-    "MUFU": ("MUFU",),
-    "POPC/FLO": ("POPC", "FLO", "BREV"),
-    "FFMA/FMUL/FADD": ("FFMA", "FMUL", "FADD", "FSETP", "FMNMX", "FSEL",
-                       "FCHK", "FSET"),
-    "LDS": ("LDS",),
-    "LDG/STG": ("LDG", "STG", "LD", "ST", "LDC", "ULDC"),
-    "BRA": ("BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET", "WARPSYNC"),
-}
-
-
-def _cuobjdump() -> str:
-    """The toolkit's ``cuobjdump`` (beside ``nvcc``), else the copy in
-    Triton's wheel.  Raises when there is none."""
-    try:
-        found = pathlib.Path(nvcc_path()).with_name("cuobjdump")
-        if found.exists():
-            return str(found)
-    except RuntimeError:
-        pass
-    import importlib.util
-
-    spec = importlib.util.find_spec("triton")
-    if spec and spec.origin:
-        found = (pathlib.Path(spec.origin).parent / "backends" / "nvidia" /
-                 "bin" / "cuobjdump")
-        if found.exists():
-            return str(found)
-    raise RuntimeError("cuobjdump not found: no SASS to count")
-
-
-def sass_mix(lib_path, pattern: str = "") -> dict:
-    """Static SASS opcode counts of the kernels in ``lib_path`` whose
-    mangled name contains ``pattern``: {kernel: {"total": n, class: n,
-    ..., "opcodes": {opcode: n}}}, classes as in ``SASS_CLASSES``
-    (``NOP`` padding left out).  Counts are per compiled instruction,
-    not per executed one: a loop body counts once."""
-    out = subprocess.run([_cuobjdump(), "-sass", str(lib_path)],
-                         capture_output=True, text=True, check=True).stdout
-    mixes, cur = {}, None
-    for line in out.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            cur = None
-            if pattern in m.group(1):
-                cur = mixes.setdefault(m.group(1), {})
-            continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                     line)
-        if cur is None or not m:
-            continue
-        op = m.group(1).split(".")[0]
-        if op != "NOP":
-            cur[op] = cur.get(op, 0) + 1
-    rows = {}
-    for name, ops in mixes.items():
-        row = {"total": sum(ops.values())}
-        for cls, members in SASS_CLASSES.items():
-            row[cls] = sum(n for op, n in ops.items() if op in members)
-        row["opcodes"] = dict(sorted(ops.items(), key=lambda kv: -kv[1]))
-        rows[name] = row
-    try:
-        cufilt = pathlib.Path(nvcc_path()).with_name("cu++filt")
-        names = subprocess.run([str(cufilt)] + list(rows), capture_output=True,
-                               text=True, check=True).stdout.splitlines()
-        if len(names) == len(rows):
-            rows = {n.replace("(anonymous namespace)::", ""): r
-                    for n, r in zip(names, rows.values())}
     except (OSError, RuntimeError, subprocess.CalledProcessError):
         pass   # keep the mangled names
     return rows

@@ -21,7 +21,7 @@ of ``bench_util.roll_cases``.  In every case every build must equal the
 plain version bit for bit; each is then timed in turns (the old builds
 in order, the current one twice, the old ones in reverse) with CUDA
 events.  Prints each build's ptxas report and the static SASS opcode
-mix of the kernels it runs (``kernels.sass_mix``), one JSON line per
+mix of the kernels it runs (:func:`sass_mix`), one JSON line per
 timed case and the card line; needs a CUDA device.
 """
 
@@ -31,6 +31,7 @@ import ctypes
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 from dataclasses import replace
@@ -49,7 +50,8 @@ from ..ops.sweep_fused import sweep_apply_ref
 from ..ops.sweep_plan import make_layout_plan, make_sweep_plan
 from ..params import LayoutSGDParams, PathSGDParams
 
-__all__ = ["SOURCES", "build_old", "cases", "main"]
+__all__ = ["SOURCES", "SASS_CLASSES", "build_old", "sass_mix", "cases",
+           "main"]
 
 # kind of case -> (source, C entry point, its kernel's name in the SASS)
 SOURCES = {"1d": ("bucket_apply.cu", "gfasort_bucket_apply",
@@ -101,12 +103,90 @@ def build_old(src_dir: pathlib.Path, suffix: str):
             kernels.ptxas_report("".join(logs)), lib_path)
 
 
+# SASS opcode classes of :func:`sass_mix`, by the opcode's first word
+SASS_CLASSES = {
+    "IMAD": ("IMAD",),
+    "LOP3/SHF/IADD": ("LOP3", "SHF", "IADD3", "LEA", "ISETP", "SEL", "IMNMX",
+                      "PRMT", "SGXT", "VIMNMX", "IABS"),
+    "I2F/F2I": ("I2F", "F2I", "I2FP", "F2IP", "FRND", "I2I"),
+    "MUFU": ("MUFU",),
+    "POPC/FLO": ("POPC", "FLO", "BREV"),
+    "FFMA/FMUL/FADD": ("FFMA", "FMUL", "FADD", "FSETP", "FMNMX", "FSEL",
+                       "FCHK", "FSET"),
+    "LDS": ("LDS",),
+    "LDG/STG": ("LDG", "STG", "LD", "ST", "LDC", "ULDC"),
+    "BRA": ("BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET", "WARPSYNC"),
+}
+
+
+def _cuobjdump() -> str:
+    """The toolkit's ``cuobjdump`` (beside ``nvcc``), else the copy in
+    Triton's wheel.  Raises when there is none."""
+    try:
+        found = pathlib.Path(kernels.nvcc_path()).with_name("cuobjdump")
+        if found.exists():
+            return str(found)
+    except RuntimeError:
+        pass
+    import importlib.util
+
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.origin:
+        found = (pathlib.Path(spec.origin).parent / "backends" / "nvidia" /
+                 "bin" / "cuobjdump")
+        if found.exists():
+            return str(found)
+    raise RuntimeError("cuobjdump not found: no SASS to count")
+
+
+def sass_mix(lib_path, pattern: str = "") -> dict:
+    """Static SASS opcode counts of the kernels in ``lib_path`` whose
+    mangled name contains ``pattern``: {kernel: {"total": n, class: n,
+    ..., "opcodes": {opcode: n}}}, classes as in ``SASS_CLASSES``
+    (``NOP`` padding left out).  Counts are per compiled instruction,
+    not per executed one: a loop body counts once."""
+    out = subprocess.run([_cuobjdump(), "-sass", str(lib_path)],
+                         capture_output=True, text=True, check=True).stdout
+    mixes, cur = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = None
+            if pattern in m.group(1):
+                cur = mixes.setdefault(m.group(1), {})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                     line)
+        if cur is None or not m:
+            continue
+        op = m.group(1).split(".")[0]
+        if op != "NOP":
+            cur[op] = cur.get(op, 0) + 1
+    rows = {}
+    for name, ops in mixes.items():
+        row = {"total": sum(ops.values())}
+        for cls, members in SASS_CLASSES.items():
+            row[cls] = sum(n for op, n in ops.items() if op in members)
+        row["opcodes"] = dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+        rows[name] = row
+    try:
+        cufilt = pathlib.Path(kernels.nvcc_path()).with_name("cu++filt")
+        names = subprocess.run([str(cufilt)] + list(rows), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+        if len(names) == len(rows):
+            rows = {n.replace("(anonymous namespace)::", ""): r
+                    for n, r in zip(names, rows.values())}
+    except (OSError, RuntimeError, subprocess.CalledProcessError):
+        pass   # keep the mangled names
+    return rows
+
+
 def sass_rows(lib_path, kinds) -> dict:
-    """The static SASS mix (classes and totals, ``kernels.sass_mix``) of
+    """The static SASS mix (classes and totals, :func:`sass_mix`) of
     the kernels of ``kinds`` in the library at ``lib_path``."""
     rows = {}
     for kind in sorted(kinds):
-        rows.update(kernels.sass_mix(lib_path, SOURCES[kind][2]))
+        rows.update(sass_mix(lib_path, SOURCES[kind][2]))
     return rows
 
 
