@@ -171,10 +171,11 @@ script's seconds so far:
                 against ``roll_apply_ref`` / ``roll_apply_nd_ref`` on the
                 bench index, plan phases 0 and 1 with the sampler's words
                 and the bucket kernels' sums, phase 0 with every bucket a
-                roll bucket, and the 1D and 2D edge (P = 5 words, buckets
-                k > S / 2 at ki = 0, k > S, k > 2S): 1D, 2D and 3D,
-                ``torch.equal``; each timed beside the plain version and
-                the bound, with the registers and spills.
+                roll bucket, the 1D, 2D and 3D edge (P = 5 words, buckets
+                k > S / 2 at ki = 0, k > S, k > 2S) and 3D phase 1 at
+                P = 8 (the sharded 3D layout's two words): 1D, 2D and
+                3D, ``torch.equal``; each timed beside the plain version
+                and the bound, with the registers and spills.
 26. whole_sweep — one consensus period of the 1D engine (the bench plan)
                 and of the 2D engine (the layout plan) on the bench
                 index: ``sweep_once`` / ``nd_sweep_once`` with the kernels
@@ -694,10 +695,10 @@ def phase_roll(bench, plans, card_line, ptxas):
     every case of ``bench_util.roll_cases`` (the bench index with the
     sampler's words and the bucket kernels' sums; plan phases 0 and 1 at
     the 1D plan's P and the 2D and 3D layout plans', phase 0 with every
-    bucket a roll bucket, and the 1D and 2D edge: P = 5 words with
-    buckets k > S / 2 at ki = 0, k > S and k > 2S): ``torch.equal``; each
-    timed beside the plain version and the bound, with the registers and
-    spills of the kernel it ran."""
+    bucket a roll bucket, the 1D, 2D and 3D edge: P = 5 words with
+    buckets k > S / 2 at ki = 0, k > S and k > 2S, and 3D phase 1 at
+    P = 8): ``torch.equal``; each timed beside the plain version and the
+    bound, with the registers and spills of the kernel it ran."""
     from gfasort_tpu_torch.bench_util import roll_cases
     from gfasort_tpu_torch.ops.roll_apply import (roll_apply, roll_apply_nd,
                                                   roll_apply_nd_ref,
@@ -729,7 +730,8 @@ def phase_roll(bench, plans, card_line, ptxas):
             f32, i32, cvt = ops_nd(D, P, len(rb))
             # the per-end combine: max, D divides, 2D adds and selects
             ops = (f32 + 4 * D + 1, i32, cvt + D)
-            kname = f"roll_apply_nd_kernel<(int){D}, (bool){int(P > 1)}>"
+            kname = (f"roll_apply_nd_kernel<(int){D}, "
+                     f"(int){0 if P == 1 else n_words(P)}>")
         rec = dict(S=S, P=P, roll_buckets=[list(b) for b in rb],
                    kernel_buckets=len(kb), max_abs_err=0.0,
                    bit_identical=True, ms=ms, plain_ms=plain_ms,

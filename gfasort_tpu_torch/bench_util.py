@@ -853,9 +853,11 @@ def roll_cases(pidx, plans, dev):
     the bucket kernels' sums: 1D at the 1D plan's P, 2D and 3D at the
     layout plans', each on plan phases 0 and 1 and on phase 0 with every
     bucket a roll bucket (as under ``GFASORT_DENSE_KERNEL=xla``); then
-    the 1D and 2D edge: P = 5 words (three unused fields, 0) with roll
-    buckets k > S / 2 at ki = 0, k = S + 7 and k = 2S + 3 (partners read
-    mod S) and phase 0's kernel buckets.  One dict per case: ``dims``,
+    the 1D, 2D and 3D edge: P = 5 words (three unused fields, 0) with
+    roll buckets k > S / 2 at ki = 0, k = S + 7 and k = 2S + 3 (partners
+    read mod S) and phase 0's kernel buckets; and in 3D plan phase 1 at
+    P = 8 (``"1_p8"``: the sharded 3D layout's two words, its engine
+    having no proposal clamp).  One dict per case: ``dims``,
     ``phase_of_plan``, ``P``, ``kb``, ``rb``, ``kernel`` ("roll_apply" or
     "roll_apply_nd"), ``words_in`` / ``words_out`` (the f32/i32 words
     per step each input and output holds, for the byte bound) and
@@ -873,7 +875,7 @@ def roll_cases(pidx, plans, dev):
     pos, rank, cnt, rev, length = layout_static_arrays(pidx, dev)
     edge_rb = ((S // 2 + 12_345, 0), (S + 7, 1), (2 * S + 3, 2))
 
-    def phases(plan, P):
+    def phases(plan, P, dims):
         for ph_i in (0, 1):
             ph = plan.phases[ph_i]
             yield ph_i, ph, P, ph.kernel_buckets, ph.roll_buckets
@@ -881,6 +883,9 @@ def roll_cases(pidx, plans, dev):
         yield "0_all", ph, P, (), tuple(sorted(
             ph.kernel_buckets + ph.roll_buckets, key=lambda b: b[1]))
         yield "edge", ph, 5, ph.kernel_buckets, edge_rb
+        if dims == 3:
+            ph = plan.phases[1]
+            yield "1_p8", ph, 8, ph.kernel_buckets, ph.roll_buckets
 
     def n_words(P):
         return 1 if P == 1 else -(-P // 4)
@@ -888,7 +893,7 @@ def roll_cases(pidx, plans, dev):
     p1d = plans["1d"]
     xs = torch.from_numpy((rng.standard_normal(S) * 100).astype(np.float32)).to(dev)
     eta = float(p1d.sweep_eta[0])
-    for ph_i, ph, P, kb, rb in phases(p1d, p1d.proposals):
+    for ph_i, ph, P, kb, rb in phases(p1d, p1d.proposals, 1):
         key_words = sweep_key_table(key_data(5), 1, P)[0]
         words, _ = sample_words(sampler_consts(ph, False, dev), key_words,
                                 False, rank, cnt, 1.0)
@@ -906,9 +911,7 @@ def roll_cases(pidx, plans, dev):
         cs = torch.from_numpy(np.concatenate([
             bench_layout_coords(rng, pidx.step_pos.astype(np.float32), D)
             for _ in range(2)])).to(dev)
-        for ph_i, ph, P, kb, rb in phases(plan, plan.proposals):
-            if ph_i == "edge" and D != 2:
-                continue
+        for ph_i, ph, P, kb, rb in phases(plan, plan.proposals, D):
             key_words = sweep_key_table(key_data(6), 1, P)[0]
             words, coin = sample_words(sampler_consts(ph, False, dev),
                                        key_words, False, rank, cnt, 1.0,

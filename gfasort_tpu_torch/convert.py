@@ -87,7 +87,7 @@ def layout_state(pidx: PathIndex, init_node_coords: np.ndarray, dims: int,
             torch.from_numpy(np.ascontiguousarray(cs_node0)).to(dev))
 
 
-def batched_inputs(pidx: PathIndex, params, start=None, device="cpu"):
+def batched_inputs(pidx: PathIndex, params, start=None, device="cuda"):
     """(DeviceIndex, start state, key words) of the batched engines from
     one numpy state, as the JAX ones upload them: the ``DeviceIndex``
     arrays in ``params.dtype``; the initial positions [N] (``start``, by

@@ -36,17 +36,20 @@
 // round-to-nearest intrinsic in the plain version's order (and the build
 // passes --fmad=false); the nD rsqrt is 1 / sqrt, both correctly
 // rounded, as the plain version computes it.
-// The 1D kernel counts a pair's matching fields a 4-byte word
-// at a time: the word XOR the broadcast byte of ki (or ~ki) has a zero
-// byte exactly where a field matches, found without carries by
+// Both kernels count a pair's matching fields a 4-byte word at a time
+// (weight_words): the word XOR the broadcast byte of ki (or ~ki) has a
+// zero byte exactly where a field matches, found without carries by
 // ~(((v & 0x7F7F7F7F) + 0x7F7F7F7F) | v) & 0x80808080; the partner's
 // mask is ORed in where the guard holds, the unused fields of the last
 // word are masked off (they hold 0, which ki = 0 would match), the
 // words' masks are shifted into distinct bits and one __popc counts
-// them.  INACTIVE8 (127) matches no ki < 64 and no ~ki.  It is
-// templated on the word count (P = 1 compares the raw choices) and
-// indexes in 32 bits: the host passes k mod S and the ahead guard's
-// limit S - k per bucket.  The nD kernel keeps the per-field count.
+// them.  INACTIVE8 (127) matches no ki < 64 and no ~ki.  Both are
+// templated on the word count (0: P = 1 compares the raw choices), the
+// nD kernel also on D, and both index in 32 bits: the host passes k mod
+// S and the ahead guard's limit S - k per bucket.  The nD kernel forms
+// each [D, S] / [2D, S] row's pointer once per thread in 64 bits (2D * S
+// may pass 2^31 where S does not) and indexes it with the 32-bit step.
+// Loads go through __ldg from __restrict__ pointers.
 // Left for later: evaluating each pair once (the bucket kernels' pair
 // table does not reach partners k > KMAX away).
 
@@ -60,6 +63,10 @@ constexpr int kMaxWords = 4;
 constexpr int kMaxProposals = 4 * kMaxWords;
 constexpr int kMaxDims = 8;                   // ops/sweep_dense.MAX_DIMS
 constexpr int kThreads = 256;
+// The nD kernel's block: at 128 threads the compiler fits D = 2 in 32
+// registers (36 at 256), a full SM of warps; 6% faster at D = 2, P = 8 on
+// an H100 (tools/kernel_ab.py), equal at 64 threads.
+constexpr int kThreadsNd = 128;
 
 struct RollParams {
   const float* xs;        // 1D: [S] positions; nD: [D, S] my_c
@@ -79,41 +86,8 @@ struct RollParams {
   int ki[kMaxBuckets];
   int kmod[kMaxBuckets];      // k mod S
   int ahead[kMaxBuckets];     // the ahead guard t + k < S as t < ahead
-  uint32_t last_live;         // 1D: the used fields' top bits, last word
+  uint32_t last_live;         // the used fields' top bits, last word
 };
-
-// Signed choice of proposal p: the raw choice (P == 1) or the signed
-// 8-bit field p % 4 of word p / 4.
-template <bool PACKED>
-__device__ __forceinline__ int field(const int (&w)[kMaxWords], int p) {
-  if (!PACKED) return w[0];
-  return static_cast<int>(static_cast<int8_t>((w[p >> 2] >> (8 * (p & 3))) & 0xFF));
-}
-
-// The f32 weight of a pair: the proposals whose own field is `mine`, or,
-// where `guard` holds, whose partner's field is `theirs`.
-template <bool PACKED>
-__device__ __forceinline__ float weight(const int (&wa)[kMaxWords],
-                                        const int (&wb)[kMaxWords], int mine,
-                                        int theirs, bool guard, int proposals) {
-  int n = 0;
-#pragma unroll
-  for (int p = 0; p < kMaxProposals; ++p) {
-    if (p >= proposals) break;
-    n += (field<PACKED>(wa, p) == mine ||
-          (guard && field<PACKED>(wb, p) == theirs)) ? 1 : 0;
-  }
-  return __int2float_rn(n);
-}
-
-template <bool PACKED>
-__device__ __forceinline__ void load_words(const RollParams& prm, long long i,
-                                           int (&w)[kMaxWords]) {
-#pragma unroll
-  for (int j = 0; j < kMaxWords; ++j) {
-    w[j] = j < prm.n_words ? prm.words[j][i] : 0;
-  }
-}
 
 // d, valid weight, safe and mu of a pair, shared by both engines.
 __device__ __forceinline__ void pair_base(float pa, float pb, float weight,
@@ -170,18 +144,6 @@ __device__ __forceinline__ void half_nd(float pa, const float (&ca)[D],
   for (int d = 0; d < D; ++d) upd[d] = __fmul_rn(neg_wr, delta[d]);
 }
 
-// (t + shift) mod S in [0, S), for t in [0, S); the 64-bit remainder
-// only where the partner wraps around
-__device__ __forceinline__ long long roll_index(long long t, long long shift,
-                                                long long S) {
-  long long j = t + shift;
-  if (j < 0 || j >= S) {
-    j %= S;
-    if (j < 0) j += S;
-  }
-  return j;
-}
-
 // 0x80 in each 8-bit field of w equal to the broadcast byte b4, 0
 // elsewhere and outside `live` (carry-free: no false matches).
 __device__ __forceinline__ uint32_t eq_fields(uint32_t w, uint32_t b4,
@@ -190,7 +152,7 @@ __device__ __forceinline__ uint32_t eq_fields(uint32_t w, uint32_t b4,
   return ~(((v & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | v) & live;
 }
 
-// The 1D weight of a pair, a word at a time: the proposals whose own
+// The weight of a pair, a word at a time: the proposals whose own
 // field is the byte `mine` (broadcast), or, where `guard` holds, whose
 // partner's field is `theirs`.  NW == 0: the raw choices (P == 1).
 template <int NW>
@@ -222,6 +184,27 @@ __device__ __forceinline__ void load_words_n(const RollParams& prm, int i,
   }
 }
 
+// The partners (t + k) mod S and (t - k) mod S of step t in [0, S), from
+// km = k mod S, in 32 bits (S < 2^31, so t + km < 2^32).
+__device__ __forceinline__ void partners(int t, int km, int S, int& ja,
+                                         int& jb) {
+  const uint32_t ja_u = static_cast<uint32_t>(t) + static_cast<uint32_t>(km);
+  ja = static_cast<int>(
+      ja_u >= static_cast<uint32_t>(S) ? ja_u - static_cast<uint32_t>(S) : ja_u);
+  jb = t >= km ? t - km : t - km + S;
+}
+
+// The choices a bucket's pairs compare with: ki and ~ki raw (P == 1) or
+// their byte broadcast to the 4 fields of a word.
+template <int NW>
+__device__ __forceinline__ void bucket_choices(int ki, uint32_t& plus,
+                                               uint32_t& minus) {
+  plus = NW == 0 ? static_cast<uint32_t>(ki)
+                 : (static_cast<uint32_t>(ki) & 0xFFu) * 0x01010101u;
+  minus = NW == 0 ? static_cast<uint32_t>(~ki)
+                  : (static_cast<uint32_t>(~ki) & 0xFFu) * 0x01010101u;
+}
+
 // NW: choice words per step (1-4), 0 for the raw choices of P == 1.
 template <int NW>
 __global__ void __launch_bounds__(kThreads)
@@ -238,18 +221,10 @@ roll_apply_kernel(const RollParams prm) {
   float dsum = prm.acc_in ? __ldg(prm.acc_in + t) : 0.0f;
   float csum = prm.w_in ? __ldg(prm.w_in + t) : 0.0f;
   for (int b = 0; b < prm.n_buckets; ++b) {
-    // the partners at (t + k) mod S and (t - k) mod S
-    const int km = prm.kmod[b];
-    const uint32_t ja_u = static_cast<uint32_t>(t) + static_cast<uint32_t>(km);
-    const int ja = static_cast<int>(
-        ja_u >= static_cast<uint32_t>(S) ? ja_u - static_cast<uint32_t>(S) : ja_u);
-    const int jb = t >= km ? t - km : t - km + S;
-    const int ki = prm.ki[b];
-    // the choices as compared: raw (P == 1) or the byte broadcast
-    const uint32_t plus = NW == 0 ? static_cast<uint32_t>(ki)
-                                  : (static_cast<uint32_t>(ki) & 0xFFu) * 0x01010101u;
-    const uint32_t minus = NW == 0 ? static_cast<uint32_t>(~ki)
-                                   : (static_cast<uint32_t>(~ki) & 0xFFu) * 0x01010101u;
+    int ja, jb;
+    partners(t, prm.kmod[b], S, ja, jb);
+    uint32_t plus, minus;
+    bucket_choices<NW>(prm.ki[b], plus, minus);
     uint32_t wa[kMaxWords], wb[kMaxWords];
     load_words_n<NW>(prm, ja, wa);
     load_words_n<NW>(prm, jb, wb);
@@ -272,56 +247,70 @@ roll_apply_kernel(const RollParams prm) {
   prm.out[t] = __fadd_rn(x, __fdiv_rn(dsum, csum < 1.0f ? 1.0f : csum));
 }
 
-template <int D, bool PACKED>
-__global__ void __launch_bounds__(kThreads)
+// D: dimensions (1-8); NW: choice words per step (1-4), 0 for the raw
+// choices of P == 1.
+template <int D, int NW>
+__global__ void __launch_bounds__(kThreadsNd)
 roll_apply_nd_kernel(const RollParams prm) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long S = prm.S;
+  const int S = prm.S;
+  const int t = blockIdx.x * kThreadsNd + threadIdx.x;
   if (t >= S) return;
-  const float p = prm.pos[t];
+  const float* __restrict__ pos = prm.pos;
+  // row d of [D, S] / [2D, S] at d * S, formed in 64 bits
+  const float* __restrict__ rows[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) rows[d] = prm.xs + static_cast<long long>(d) * S;
+  const float p = __ldg(pos + t);
   float c[D], acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    c[d] = prm.xs[d * S + t];
-    acc[d] = prm.acc_in ? prm.acc_in[d * S + t] : 0.0f;
+    c[d] = __ldg(rows[d] + t);
+    acc[d] = prm.acc_in ? __ldg(prm.acc_in + static_cast<long long>(d) * S + t)
+                        : 0.0f;
   }
-  int mine[kMaxWords];
-  load_words<PACKED>(prm, t, mine);
-  float wacc = prm.w_in ? prm.w_in[t] : 0.0f;
+  uint32_t mine[kMaxWords];
+  load_words_n<NW>(prm, t, mine);
+  float wacc = prm.w_in ? __ldg(prm.w_in + t) : 0.0f;
   for (int b = 0; b < prm.n_buckets; ++b) {
-    const long long k = prm.k[b];
-    const int ki = prm.ki[b];
-    float co[D], u1[D], u2[D], w1, w2;
-    int theirs[kMaxWords];
-    // partner ahead (t + k): I chose +k, or they chose -k
-    long long j = roll_index(t, k, S);
-    load_words<PACKED>(prm, j, theirs);
+    int ja, jb;
+    partners(t, prm.kmod[b], S, ja, jb);
+    uint32_t plus, minus;
+    bucket_choices<NW>(prm.ki[b], plus, minus);
+    uint32_t wa[kMaxWords], wb[kMaxWords];
+    load_words_n<NW>(prm, ja, wa);
+    load_words_n<NW>(prm, jb, wb);
+    float ca[D], cb[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) co[d] = prm.xs[d * S + j];
-    half_nd<D>(p, c, prm.pos[j], co,
-               weight<PACKED>(mine, theirs, ki, ~ki, t + k < S, prm.proposals),
+    for (int d = 0; d < D; ++d) {
+      ca[d] = __ldg(rows[d] + ja);
+      cb[d] = __ldg(rows[d] + jb);
+    }
+    const float pa = __ldg(pos + ja), pb = __ldg(pos + jb);
+    float u1[D], u2[D], w1, w2;
+    // partner ahead (t + k): I chose +k, or they chose -k
+    half_nd<D>(p, c, pa, ca,
+               weight_words<NW>(mine, wa, plus, minus, t < prm.ahead[b],
+                                prm.last_live),
                prm.eta, w1, u1);
     // partner behind (t - k): I chose -k, or they chose +k
-    j = roll_index(t, -k, S);
-    load_words<PACKED>(prm, j, theirs);
-#pragma unroll
-    for (int d = 0; d < D; ++d) co[d] = prm.xs[d * S + j];
-    half_nd<D>(p, c, prm.pos[j], co,
-               weight<PACKED>(mine, theirs, ~ki, ki, t >= k, prm.proposals),
+    half_nd<D>(p, c, pb, cb,
+               weight_words<NW>(mine, wb, minus, plus, t >= prm.k[b],
+                                prm.last_live),
                prm.eta, w2, u2);
 #pragma unroll
     for (int d = 0; d < D; ++d) acc[d] = __fadd_rn(__fadd_rn(acc[d], u1[d]), u2[d]);
     wacc = __fadd_rn(__fadd_rn(wacc, w1), w2);
   }
   // the chosen end's rows take the mean update, the other end's + 0
-  const bool lane0 = prm.lane0[t] != 0;
+  const bool lane0 = __ldg(prm.lane0 + t) != 0;
   const float div = wacc < 1.0f ? 1.0f : wacc;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     const float upd = __fdiv_rn(acc[d], div);
-    prm.out[d * S + t] = __fadd_rn(prm.cs[d * S + t], lane0 ? upd : 0.0f);
-    prm.out[(D + d) * S + t] =
-        __fadd_rn(prm.cs[(D + d) * S + t], lane0 ? 0.0f : upd);
+    const long long r0 = static_cast<long long>(d) * S + t;
+    const long long r1 = static_cast<long long>(D + d) * S + t;
+    prm.out[r0] = __fadd_rn(__ldg(prm.cs + r0), lane0 ? upd : 0.0f);
+    prm.out[r1] = __fadd_rn(__ldg(prm.cs + r1), lane0 ? 0.0f : upd);
   }
 }
 
@@ -372,10 +361,12 @@ int check_and_fill(RollParams& prm, int device, const float* xs,
 
 template <int D>
 void launch_nd(const RollParams& prm, int blocks, cudaStream_t st) {
-  if (prm.proposals == 1) {
-    roll_apply_nd_kernel<D, false><<<blocks, kThreads, 0, st>>>(prm);
-  } else {
-    roll_apply_nd_kernel<D, true><<<blocks, kThreads, 0, st>>>(prm);
+  switch (prm.proposals == 1 ? 0 : prm.n_words) {
+    case 0: roll_apply_nd_kernel<D, 0><<<blocks, kThreadsNd, 0, st>>>(prm); break;
+    case 1: roll_apply_nd_kernel<D, 1><<<blocks, kThreadsNd, 0, st>>>(prm); break;
+    case 2: roll_apply_nd_kernel<D, 2><<<blocks, kThreadsNd, 0, st>>>(prm); break;
+    case 3: roll_apply_nd_kernel<D, 3><<<blocks, kThreadsNd, 0, st>>>(prm); break;
+    default: roll_apply_nd_kernel<D, 4><<<blocks, kThreadsNd, 0, st>>>(prm); break;
   }
 }
 
@@ -426,7 +417,7 @@ extern "C" int gfasort_roll_apply_nd(
   if (err != 0) return err;
   prm.lane0 = lane0;
   prm.cs = cs;
-  const int blocks = (S + kThreads - 1) / kThreads;
+  const int blocks = (S + kThreadsNd - 1) / kThreadsNd;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 1: launch_nd<1>(prm, blocks, st); break;

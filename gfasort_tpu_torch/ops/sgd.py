@@ -100,7 +100,7 @@ class DeviceIndex:
 
     @classmethod
     def from_path_index(cls, pidx: PathIndex, dtype=np.float32,
-                        device="cpu") -> "DeviceIndex":
+                        device="cuda") -> "DeviceIndex":
         dev = resolve_device(device)
 
         def up(a, dt):

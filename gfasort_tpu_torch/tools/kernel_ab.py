@@ -17,12 +17,15 @@ and 1 in 1D; D = 2 with P = 8, D = 3 with P = 4 and D = 2 with P = 1 in
 nD; the fused apply over the full offset sets at the first and the last
 sweep's eta; the sampler's cases of ``bench_util.sampler_cases`` (every
 one checked, each plan's and edge's main case timed); the roll kernels'
-of ``bench_util.roll_cases``.  In every case every build must equal the
-plain version bit for bit; each is then timed in turns (the old builds
-in order, the current one twice, the old ones in reverse) with CUDA
-events.  Prints each build's ptxas report and the static SASS opcode
-mix of the kernels it runs (:func:`sass_mix`), one JSON line per
-timed case and the card line; needs a CUDA device.
+of ``bench_util.roll_cases`` (1D at P = 12, 2D at P = 8 and 3D at P = 4
+on plan phases 0 and 1 and on phase 0 all rolled; the P = 5 edge with
+far buckets at ki = 0 in 1D, 2D and 3D; 3D phase 1 at P = 8).  In every
+case every build must equal the plain version bit for bit; each is then
+timed in turns (the old builds in order, the current one twice, the old
+ones in reverse) with CUDA events.  Prints each build's seconds, its
+ptxas report and the static SASS opcode mix of the kernels it runs
+(:func:`sass_mix`), one JSON line per timed case and the card line;
+needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import time
 from dataclasses import replace
 
 import numpy as np
@@ -70,14 +74,16 @@ SOURCES = {"1d": ("bucket_apply.cu", "gfasort_bucket_apply",
 
 def build_old(src_dir: pathlib.Path, suffix: str):
     """Build the sources ``src_dir`` holds into one library with their
-    entry points renamed by ``suffix``.  Returns ({kind: entry point},
-    the ptxas report, the library's path)."""
+    entry points renamed by ``suffix`` (one nvcc per source, all started
+    together, as ``kernels.build`` does).  Returns ({kind: entry point},
+    the ptxas report, the library's path, the build's seconds)."""
     kinds = [kind for kind, (src, _, _) in SOURCES.items()
              if (src_dir / src).exists()]
     if not kinds:
         raise FileNotFoundError(f"{src_dir} holds none of "
                                 f"{sorted({v[0] for v in SOURCES.values()})}")
     srcs = sorted({SOURCES[kind][0] for kind in kinds})
+    t0 = time.perf_counter()
     nvcc = kernels.nvcc_path()
     out = src_dir / "_build"
     out.mkdir(exist_ok=True)
@@ -97,10 +103,11 @@ def build_old(src_dir: pathlib.Path, suffix: str):
     lib_path = out / f"libold_kernels{suffix}.so"
     subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                     "-shared", "-o", str(lib_path), *objs], check=True)
+    seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(lib_path))
     return ({kind: kernels.bind_entry(lib, SOURCES[kind][1], suffix)
              for kind in kinds},
-            kernels.ptxas_report("".join(logs)), lib_path)
+            kernels.ptxas_report("".join(logs)), lib_path, seconds)
 
 
 # SASS opcode classes of :func:`sass_mix`, by the opcode's first word
@@ -286,19 +293,23 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    t0 = time.perf_counter()
     new_lib, log = kernels.build()
+    # the current sources' build; None where the library was already built
+    new_s = time.perf_counter() - t0 if log else None
     kernels.library()
     olds, old_libs = {}, {}   # label -> {kind: entry point}, library
     for i, arg in enumerate(argv):
         src_dir = pathlib.Path(arg).resolve()
         label = f"old{i}:{src_dir.name}"
-        olds[label], report, old_libs[label] = build_old(src_dir, f"_old{i}")
+        olds[label], report, old_libs[label], secs = build_old(src_dir,
+                                                               f"_old{i}")
         print(json.dumps({"old_build": label, "path": os.fspath(src_dir),
-                          "kernels": sorted(olds[label]), "ptxas": report}),
-              flush=True)
+                          "kernels": sorted(olds[label]), "seconds": secs,
+                          "ptxas": report}), flush=True)
     kinds = {kind for entries in olds.values() for kind in entries}
-    print(json.dumps({"new_build": "csrc", "ptxas": kernels.ptxas_report(log)}),
-          flush=True)
+    print(json.dumps({"new_build": "csrc", "seconds": new_s,
+                      "ptxas": kernels.ptxas_report(log)}), flush=True)
     for label, lib_path in [("new", new_lib), *old_libs.items()]:
         print(json.dumps({"sass_mix": label, "static_counts": True,
                           "kernels": sass_rows(lib_path, kinds)}), flush=True)

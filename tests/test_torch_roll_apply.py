@@ -4,15 +4,16 @@ numpy step by step and held bit for bit to its plain versions
 sweep's kernels: ``roll_apply``, ``roll_apply_nd`` and the sampler's
 ``sweep_common.sample_words``.
 
-The model follows the kernel: each step reads its partners directly at
-(t + k) mod S and (t - k) mod S for every roll bucket, counts a pair's
-matching choices (the 1D kernel a packed word at a time: a carry-free
-zero-byte test of the word XOR the broadcast byte of ki or ~ki, the
-partner's mask where the guard holds, the unused fields of the last
-word masked off, one popcount; the nD kernel field by field, field p of
-word p / 4; the raw choice for P = 1), guards the wrap-around on the
-partner's choice only, evaluates every pair in full, sums per bucket
-``acc + u1 + u2`` from the bucket kernel's sums (or +0), and combines.  The plain versions are held to the
+The model follows the kernels: each step reads its partners directly at
+(t + k) mod S and (t - k) mod S for every roll bucket, formed as the
+kernels form them from k mod S (the ahead guard t + k < S as t < S - k,
+never where k >= S), counts a pair's matching choices a packed word at
+a time (a carry-free zero-byte test of the word XOR the broadcast byte
+of ki or ~ki, the partner's mask where the guard holds, the unused
+fields of the last word masked off, one popcount; the raw choice for
+P = 1), guards the wrap-around on the partner's choice only, evaluates
+every pair in full, sums per bucket ``acc + u1 + u2`` from the bucket
+kernel's sums (or +0), and combines.  The plain versions are held to the
 unjitted JAX sweeps by tests/test_torch_sweep.py and
 tests/test_torch_sweep_nd.py.  The kernel itself runs only on the card
 (tests/test_torch_cuda.py)."""
@@ -52,7 +53,7 @@ def _fields(words, P):
 
 
 def _weight(fields, t, j, mine, theirs, guard):
-    """The nD kernel's count, field by field."""
+    """The plain count, field by field (field p of word p / 4)."""
     n = np.zeros(t.shape, np.int64)
     for f in fields:
         n += (f == mine) | (guard & (f[j] == theirs))
@@ -61,13 +62,13 @@ def _weight(fields, t, j, mine, theirs, guard):
 
 def _eq_fields(w, b4, live):
     """0x80 in each 8-bit field of ``w`` equal to the broadcast byte
-    ``b4``, within ``live`` (the 1D kernel's carry-free zero-byte test)."""
+    ``b4``, within ``live`` (the kernels' carry-free zero-byte test)."""
     v = w ^ b4
     return ~(((v & U32(0x7F7F7F7F)) + U32(0x7F7F7F7F)) | v) & live
 
 
 def _weight_words(words, P, j, mine, theirs, guard):
-    """The 1D kernel's count, a packed word at a time (the raw choices
+    """The kernels' count, a packed word at a time (the raw choices
     for P = 1): ``mine`` / ``theirs`` are the signed choices compared
     with my own and the partner's."""
     if P == 1:
@@ -98,9 +99,17 @@ def _base(pa, pb, weight):
 
 
 def _sides(S, k):
-    """Per side: (partner index, wrap guard, my wanted field sign)."""
-    t = np.arange(S)
-    return t, [((t + k) % S, t + k < S, +1), ((t - k) % S, t >= k, -1)]
+    """Per side: (partner index, wrap guard, my wanted field sign), as the
+    kernels form them in 32 bits from the host's k mod S and ahead limit
+    S - k (0 where k >= S: no step has its partner ahead in the array)."""
+    t = np.arange(S, dtype=np.int32)
+    km = np.int32(k % S)
+    ahead = np.int32(S - k if k < S else 0)
+    ja = t + km
+    ja = np.where(ja >= S, ja - S, ja)
+    jb = np.where(t >= km, t - km, t - km + S)
+    assert (ja == (t + k) % S).all() and (jb == (t - k) % S).all()
+    return [(ja, t < ahead, +1), (jb, t >= k, -1)]
 
 
 def model_roll_1d(xs, pos, words, buckets, P, dsum=None, csum=None):
@@ -108,7 +117,7 @@ def model_roll_1d(xs, pos, words, buckets, P, dsum=None, csum=None):
     dsum = np.zeros(S, F32) if dsum is None else dsum.copy()
     csum = np.zeros(S, F32) if csum is None else csum.copy()
     for k, ki in buckets:
-        t, sides = _sides(S, k)
+        sides = _sides(S, k)
         upd = []
         for j, guard, sgn in sides:
             mine, theirs = (ki, ~ki) if sgn > 0 else (~ki, ki)
@@ -127,16 +136,15 @@ def model_roll_1d(xs, pos, words, buckets, P, dsum=None, csum=None):
 def model_roll_nd(my_pos, my_c, lane0, cs, words, buckets, P, acc=None,
                   wacc=None):
     D, S = my_c.shape
-    fields = _fields(words, P)
     acc = np.zeros((D, S), F32) if acc is None else acc.copy()
     wacc = np.zeros(S, F32) if wacc is None else wacc.copy()
     for k, ki in buckets:
-        t, sides = _sides(S, k)
+        sides = _sides(S, k)
         upd = []
         for j, guard, sgn in sides:
             mine, theirs = (ki, ~ki) if sgn > 0 else (~ki, ki)
             w, safe, mu = _base(my_pos, my_pos[j],
-                                _weight(fields, t, j, mine, theirs, guard))
+                                _weight_words(words, P, j, mine, theirs, guard))
             delta = my_c - my_c[:, j]
             mag2 = delta[0] * delta[0]
             for d in range(1, D):
@@ -245,7 +253,7 @@ def test_model_equals_roll_apply_ref_1d(workload, P, kernel, words):
 @pytest.mark.parametrize("guard", ["on", "off", "mixed"])
 @pytest.mark.parametrize("P", [1, 4, 5, 8, 12, 16])
 def test_word_count_equals_field_count(P, guard):
-    """The 1D kernel's word-wise count equals the per-field count on
+    """The kernels' word-wise count equals the per-field count on
     random words: every bucket index 0-63 (ki = 0 among them, which the
     unused fields of a last word hold), INACTIVE8 and negative fields
     present, the guard on, off and mixed."""
@@ -271,9 +279,11 @@ def test_word_count_equals_field_count(P, guard):
                 _weight(fields, t, j, mine, theirs, g))
 
 
+# the layout plans' (2, 8) and (3, 4), P = 1, the sharded 3D layout's
+# two words (3, 8), and P = 5: three unused fields of 0 in the last word
 CASES_ND = [(D, P, kernel, words)
-            for D, P in ((2, 8), (3, 4), (2, 1)) for kernel in (True, False)
-            for words in ("sampler", "random")]
+            for D, P in ((2, 8), (3, 4), (2, 1), (3, 8), (2, 5), (3, 5))
+            for kernel in (True, False) for words in ("sampler", "random")]
 
 
 @pytest.mark.parametrize("D,P,kernel,words", CASES_ND)
@@ -282,6 +292,8 @@ def test_model_equals_roll_apply_nd_ref(workload, D, P, kernel, words):
     rng = np.random.default_rng(10 * D + P + kernel)
     S = pidx.total_steps
     for phase, kb, rb in _case_buckets(pidx, p, P, kernel):
+        if P == 5:   # ki = 0 meets the unused fields; partners read mod S
+            rb = rb + ((S // 2 + 123, 0), (S + 7, 0), (2 * S + 3, 0))
         _, pos = _state(rng, pidx, ties=words == "random")
         cs = (rng.standard_normal((2 * D, S)) * 50).astype(F32)
         if words == "random":   # coincident ends: mag^2 == 0

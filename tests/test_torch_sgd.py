@@ -237,6 +237,24 @@ def test_device_index_and_batched_inputs_equal_jax(graphs, dtype):
         batched_inputs(pidx, lp, device="cpu")
 
 
+@pytest.mark.parametrize("entry", ["DeviceIndex.from_path_index",
+                                   "batched_inputs"])
+def test_entry_points_default_to_the_card(graphs, monkeypatch, entry):
+    """Called without ``device``, both ask for the card: with no CUDA
+    present ``resolve_device`` raises before any array is made, and
+    nothing is built on the CPU in its place."""
+    pidx = graphs["paths"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    made = []
+    monkeypatch.setattr(torch, "from_numpy", made.append)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "batched_inputs":
+            batched_inputs(pidx, _p1d(pidx))
+        else:
+            tsgd.DeviceIndex.from_path_index(pidx)
+    assert made == []
+
+
 # ---- the entry points -----------------------------------------------------
 
 def test_segmented_runner_equals_one_shot(graphs):
