@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Phases (they run in the order 1-4, 24-27, 5, 19, 6-8, 13's CLI run,
+Phases (they run in the order 1-4, 24-26, 28, 27, 5, 19, 6-8, 13's CLI run,
 20-21, 9, 11-12, 15-18, 22, 13-14, 10, 23); any failed check raises and
 the script exits non-zero.  Every phase line carries ``t_s``, the
 script's seconds so far:
@@ -59,19 +59,20 @@ script's seconds so far:
 10. quality_nd — the port's layout against the C++ oracle on the 20k-node
                 layout certificate, 2D and 3D, with the bench's nD knobs:
                 stress ratio <= 1.5.
-11. sweep_f64 — the 1D sweep at float64 (threefry draws, every bucket a
-                roll pass: the plan's kernel buckets must be 0 and the
-                bucket kernel must not launch), timed on the bench index
-                at full width and SWEEP_MODE_ITER = 30 iterations (cut
-                from the bench's 100 to keep the script's time), and its
-                order certified on the 100k-node workload against the
-                same oracle as ``quality``.
+11. sweep_f64 — the 1D sweep at float64 (threefry draws in the sampler
+                kernel, every bucket in the f64 roll kernel: the plan's
+                kernel buckets must be 0), timed on the bench index at
+                full width, at SWEEP_MODE_ITER = 30 iterations (cut from
+                the bench's 100) and at the plan's full depth (101 sweeps):
+                the sampler and roll kernels launch once per executed
+                sweep, the bucket kernel never, and the plain sampler and
+                roll passes are never called (each wrapped with a call
+                counter); its order certified on the 100k-node workload
+                against the same oracle as ``quality``.
 12. sweep_threefry — the same at float32 with ``GFASORT_SWEEP_RNG=
-                threefry``: the bucket and roll kernels launch once per
-                executed sweep on the bench index, the sampler kernel
-                never (threefry draws run the plain sampler); the
-                certificate as above.  (At f64 none of the three
-                launches.)
+                threefry``: the sampler (threefry kernel), bucket and
+                roll kernels each launch once per executed sweep, the
+                plain versions never; the certificate as above.
 13. batched   — the batched engine: ``-p Y --engine batched
                 --iter-max 30`` (BATCHED_CLI_ITER, cut from the CLI's 100)
                 on the bench GFA through ``cli.main`` (hashes and counts kept,
@@ -162,7 +163,9 @@ script's seconds so far:
                 then the edges, warm and cooling with both snaps: P = 5
                 with the coin, a 64-offset table and phase 0's offsets
                 cut to their first half (z past the last offset: 12
-                cases).  Every word ``torch.equal`` (else the differing
+                cases); all 76 again on the threefry f32 route and on the
+                f64 route (the threefry kernel).  Every word
+                ``torch.equal`` (else the differing
                 choices and the worst bucket distance are raised); each
                 plan's and edge's main case timed beside the plain
                 version and the bound, with the registers and spills of
@@ -174,8 +177,11 @@ script's seconds so far:
                 roll bucket, the 1D, 2D and 3D edge (P = 5 words, buckets
                 k > S / 2 at ki = 0, k > S, k > 2S) and 3D phase 1 at
                 P = 8 (the sharded 3D layout's two words): 1D, 2D and
-                3D, ``torch.equal``; each timed beside the plain version
-                and the bound, with the registers and spills.
+                3D; then the f64 route's 1D, 2D and 3D cases (every
+                bucket a roll bucket: plan phases 0 and 1 and the P = 5
+                edge with the far buckets); ``torch.equal``; each timed
+                beside the plain version and the bound, with the
+                registers and spills.
 26. whole_sweep — one consensus period of the 1D engine (the bench plan)
                 and of the 2D engine (the layout plan) on the bench
                 index: ``sweep_once`` / ``nd_sweep_once`` with the kernels
@@ -186,11 +192,18 @@ script's seconds so far:
 27. sweep_parts — one rotation of 1D sweeps on the bench index taken
                 apart with CUDA events (the sampler, bucket and roll
                 kernels), the whole sweep, the plain composition and the
-                consensus.
+                consensus; on the hash route, the threefry f32 route and
+                the f64 route (its own plan: no bucket kernel).
+28. whole_sweep_f64 — one consensus period of the 1D f64 engine and of
+                the 2D f64 engine (the f64 plans) on the bench index,
+                the kernels against the plain sweeps as in
+                ``whole_sweep``, ``torch.equal``, with the kernels'
+                launches in the period.
 
-Every bound (``bound_ms``) is the largest of four times: the bytes over
-the HBM rate, the f32 operations over the f32 peak, the int32 operations
-over the int32 rate and the conversions and transcendentals over theirs,
+Every bound (``bound_ms``) is the largest of five times: the bytes over
+the HBM rate, the f32 operations over the f32 peak, the f64 operations
+over the f64 peak (34e12/s; the f64 routes), the int32 operations over
+the int32 rate and the conversions and transcendentals over theirs,
 the last two at the maximum SM clock the card reports (the ``clock``
 line; the published 1,980 MHz unless it reports another); ``bound_pipe``
 names the one that binds.  Then the ``nvidia-smi`` card line, one JSON
@@ -218,7 +231,7 @@ import numpy as np
 import torch
 
 from gfasort_tpu_torch.bench_util import (BENCH_SHAPE, CVT_OPS_PER_CLOCK,
-                                          F32_OPS_S, HBM_BYTES_S,
+                                          F32_OPS_S, F64_OPS_S, HBM_BYTES_S,
                                           INT32_OPS_PER_CLOCK,
                                           MAX_SM_CLOCK_MHZ,
                                           bench_layout_coords,
@@ -267,17 +280,20 @@ BENCH_TIMEOUT_S = 420
 CLOCK_MHZ = MAX_SM_CLOCK_MHZ
 
 
-def bound_ms(S: int, words_in, words_out, f32=0, int32=0, cvt=0):
-    """The least time the card could take: the largest of four times,
-    the bytes (each input word read once, each output word written once)
-    over the HBM rate, the f32 operations over the f32 peak, the int32
-    operations over the int32 rate and the conversions, transcendentals
-    and population counts over theirs (both at ``CLOCK_MHZ``).  ``f32``,
-    ``int32`` and ``cvt`` count per step.  Returns (ms, "bytes" or
-    "operations", the one that binds: "hbm", "f32", "int32" or "cvt")."""
+def bound_ms(S: int, words_in, words_out, f32=0, int32=0, cvt=0, f64=0):
+    """The least time the card could take: the largest of five times,
+    the bytes (each input word read once, each output word written once;
+    a word is 4 bytes) over the HBM rate, the f32 operations over the f32
+    peak, the f64 operations over the f64 peak, the int32 operations over
+    the int32 rate and the conversions, transcendentals and population
+    counts over theirs (both at ``CLOCK_MHZ``).  ``f32``, ``int32``,
+    ``cvt`` and ``f64`` count per step.  Returns (ms, "bytes" or
+    "operations", the one that binds: "hbm", "f32", "f64", "int32" or
+    "cvt")."""
     hz = CLOCK_MHZ * 1e6
     times = {"hbm": 4.0 * S * (words_in + words_out) / HBM_BYTES_S,
              "f32": float(S) * f32 / F32_OPS_S,
+             "f64": float(S) * f64 / F64_OPS_S,
              "int32": float(S) * int32 / (INT32_OPS_PER_CLOCK * hz),
              "cvt": float(S) * cvt / (CVT_OPS_PER_CLOCK * hz)}
     pipe = max(times, key=times.get)
@@ -285,7 +301,8 @@ def bound_ms(S: int, words_in, words_out, f32=0, int32=0, cvt=0):
 
 
 def bound_fields(S: int, words_in, words_out, ops) -> dict:
-    """A phase line's bound keys for ``ops`` = (f32, int32, cvt) per step:
+    """A phase line's bound keys for ``ops`` = (f32, int32, cvt) or (f32,
+    int32, cvt, f64) per step:
     ``bound_ms``, ``bound_by``, ``bound_pipe``, the clock it assumed and,
     where the card reports another maximum clock than the published
     one, a note saying so."""
@@ -341,6 +358,17 @@ def ops_nd(D: int, P: int, n_buckets: int) -> tuple:
     (D) and wacc += (f32 2D + 2)."""
     m_int, m_cvt = match_ops(P)
     return n_buckets * (6 * D + 13), n_buckets * m_int, n_buckets * (m_cvt + 3)
+
+
+def as_f64(ops, P: int, n_buckets: int) -> tuple:
+    """``ops_1d`` / ``ops_nd`` (plus the combine) of the f64 route: every
+    f32 operation, the divides' reciprocals and the square roots become
+    f64 operations (each counted once, a lower bound: the IEEE double
+    divide and square root are longer sequences); the field match's
+    popcounts and conversions stay.  Returns (f32, int32, cvt, f64)."""
+    f32, i32, cvt = ops
+    m_cvt = match_ops(P)[1] * n_buckets
+    return 0, i32, m_cvt, f32 + cvt - m_cvt
 
 
 def ops_fused(K: int) -> tuple:
@@ -576,8 +604,9 @@ def phase_shift_probe(card_line):
     return results
 
 
-def ops_sampler(P: int, K: int, coin: bool, frac: float) -> tuple:
-    """(f32, int32, cvt) per step of the sampler, d = ceil(log2(K + 1))
+def ops_sampler(P: int, K: int, coin: bool, frac: float,
+                route: str = "hash") -> tuple:
+    """(f32, int32, cvt, f64) per step of the sampler, d = ceil(log2(K + 1))
     the compares of one search of the offsets.  Per proposal: int32 the
     hash (three murmur mixes of nine ops, the counter's add, the two
     XORs and u's shift: 31), the coins and flags (bit 31; bit 30 and its
@@ -595,11 +624,24 @@ def ops_sampler(P: int, K: int, coin: bool, frac: float) -> tuple:
     reciprocal (8).  Per step: int32 the two chains' searches (2d),
     avail_f (2), their clamps to the space and to 1 (4) and the step's
     flags (4), the end coin's shift and mask (2); cvt n and max(avail, 1)
-    as f32 for both chains (4)."""
+    as f32 for both chains (4).
+    ``route`` "threefry" (threefry draws at f32) replaces the hash's 31
+    int32 ops by two threefry2x32 calls (20 rounds of add, rotate and xor:
+    60; the key injections' 15 adds and the counter's add: 76 each), the
+    bits' xor and u's xor, shift and or (156), and needs no conversion
+    for u (cvt 7).  ``route`` "f64" adds u's 64-bit assembly (4 int32),
+    moves the 19 float operations to f64 and counts log, exp and the
+    divide as f64 operations, once each (a lower bound: each is a
+    sequence of double operations), leaving cvt the conversions of u2
+    and z and the two truncations (4)."""
     d = max(1, (K).bit_length())   # ceil(log2(K + 1))
-    per_p = 31 + 9 + 3 + 5 + d + 4 + (2 if frac < 1.0 else 0) + (
+    draw = {"hash": 31, "threefry": 156, "f64": 160}[route]
+    per_p = draw + 9 + 3 + 5 + d + 4 + (2 if frac < 1.0 else 0) + (
         1 if P == 1 else 4)
-    return 19 * P, P * per_p + 2 * d + 10 + (2 if coin else 0), 8 * P + 4
+    int32 = P * per_p + 2 * d + 10 + (2 if coin else 0)
+    if route == "f64":
+        return 0, int32, 4 * P + 4, 22 * P
+    return 19 * P, int32, (8 if route == "hash" else 7) * P + 4, 0
 
 
 def field_distance(words_a, words_b, P: int):
@@ -643,12 +685,13 @@ def phase_sampler(bench, plans, card_line, ptxas):
     ``bench_util.sampler_cases`` (the 1D, 2D and 3D plans' P and P = 1 on
     plan phases 0 and 1, every cooling state, activity fraction and
     snap, the nD cases with their end coin; the edges P = 5, a 64-offset
-    table and a cut table past whose last offset z lies):
-    ``torch.equal``, else the count of differing choices and the worst
-    bucket distance are raised.  Each case name's main case (its first
-    phase, warm, fraction 1, stochastic snap) is timed beside the plain
-    version and the bound, with the registers and spills of the kernel
-    it ran."""
+    table and a cut table past whose last offset z lies), on the hash
+    route and on the threefry routes (threefry draws at f32, and f64;
+    the names suffixed "_threefry" and "_f64"): ``torch.equal``, else
+    the count of differing choices and the worst bucket distance are
+    raised.  Each case name's main case (its first phase, warm, fraction
+    1, stochastic snap) is timed beside the plain version and the bound,
+    with the registers and spills of the kernel it ran."""
     from gfasort_tpu_torch.bench_util import sampler_cases
     from gfasort_tpu_torch.ops.sweep_common import (sample_words,
                                                     sample_words_ref)
@@ -674,14 +717,21 @@ def phase_sampler(bench, plans, card_line, ptxas):
         if c["main"]:
             ms = cuda_ms(lambda: sample_words(*args, coin=coin))
             plain_ms = cuda_ms(lambda: sample_words_ref(*args, coin=coin), 3)
-            K = c["K"]
+            K, route = c["K"], c["route"]
+            depth = 4 if K < 16 else 7
+            kname = (f"sweep_sampler_kernel<(int){P}, (int){depth}>"
+                     if route == "hash" else
+                     f"sweep_sampler_tf_kernel<"
+                     f"{'double' if route == 'f64' else 'float'}, "
+                     f"(int){depth}>")
             # rank and cnt in, the words (and the coin's byte) out
-            rec = dict(S=S, P=P, K=K, end_coin=coin, max_abs_err=0.0,
-                       bit_identical=True, ms=ms, plain_ms=plain_ms,
+            rec = dict(S=S, P=P, K=K, route=route, end_coin=coin,
+                       max_abs_err=0.0, bit_identical=True, ms=ms,
+                       plain_ms=plain_ms,
                        **bound_fields(S, 2, n_words(P) + (0.25 if coin else 0),
-                                      ops_sampler(P, K, coin, c["frac"])),
-                       **ptxas_row(ptxas, f"sweep_sampler_kernel<(int){P}, "
-                                          f"(int){4 if K < 16 else 7}>"))
+                                      ops_sampler(P, K, coin, c["frac"],
+                                                  route)),
+                       **ptxas_row(ptxas, kname))
             results[name] = rec
     for name, rec in results.items():
         rec["cases_checked"] = checked[name]
@@ -697,8 +747,10 @@ def phase_roll(bench, plans, card_line, ptxas):
     the 1D plan's P and the 2D and 3D layout plans', phase 0 with every
     bucket a roll bucket, the 1D, 2D and 3D edge: P = 5 words with
     buckets k > S / 2 at ki = 0, k > S and k > 2S, and 3D phase 1 at
-    P = 8): ``torch.equal``; each timed beside the plain version and the
-    bound, with the registers and spills of the kernel it ran."""
+    P = 8; then the f64 route's cases, 1D, 2D and 3D, every bucket a roll
+    bucket: plan phases 0 and 1 and the P = 5 edge): ``torch.equal``;
+    each timed beside the plain version and the bound, with the registers
+    and spills of the kernel it ran."""
     from gfasort_tpu_torch.bench_util import roll_cases
     from gfasort_tpu_torch.ops.roll_apply import (roll_apply, roll_apply_nd,
                                                   roll_apply_nd_ref,
@@ -721,18 +773,22 @@ def phase_roll(bench, plans, card_line, ptxas):
         del out, ref
         ms = cuda_ms(lambda: run(*args))
         plain_ms = cuda_ms(lambda: ref_fn(*args), 3)
+        ftype = "double" if c["dtype"] == "float64" else "float"
+        nw = 0 if P == 1 else n_words(P)
         if D == 1:
             f32, i32, cvt = ops_1d(P, len(rb))
             # the combine: max, divide, add
             ops = (f32 + 3, i32, cvt + 1)
-            kname = f"roll_apply_kernel<(int){0 if P == 1 else n_words(P)}>"
+            kname = f"roll_apply_kernel<{ftype}, (int){nw}>"
         else:
             f32, i32, cvt = ops_nd(D, P, len(rb))
             # the per-end combine: max, D divides, 2D adds and selects
             ops = (f32 + 4 * D + 1, i32, cvt + D)
-            kname = (f"roll_apply_nd_kernel<(int){D}, "
-                     f"(int){0 if P == 1 else n_words(P)}>")
-        rec = dict(S=S, P=P, roll_buckets=[list(b) for b in rb],
+            kname = f"roll_apply_nd_kernel<{ftype}, (int){D}, (int){nw}>"
+        if c["dtype"] == "float64":
+            ops = as_f64(ops, P, len(rb))
+        rec = dict(S=S, P=P, dtype=c["dtype"],
+                   roll_buckets=[list(b) for b in rb],
                    kernel_buckets=len(kb), max_abs_err=0.0,
                    bit_identical=True, ms=ms, plain_ms=plain_ms,
                    **bound_fields(S, c["words_in"], c["words_out"], ops),
@@ -747,31 +803,32 @@ def phase_roll(bench, plans, card_line, ptxas):
 
 
 def plain_sweep_1d(xs, pos, rank, cnt, phase, consts, key_words, eta,
-                   cooling, P, frac):
+                   cooling, P, frac, rng="hash"):
     """One 1D sweep composed from the plain versions of the sampler and
-    the roll passes (the bucket kernel between them: the kernel phase
-    holds it to its plain version)."""
+    the roll passes (the bucket kernel between them, where the phase has
+    kernel buckets: the kernel phase holds it to its plain version)."""
     from gfasort_tpu_torch.ops.roll_apply import roll_apply_ref
     from gfasort_tpu_torch.ops.sweep_common import sample_words_ref
     from gfasort_tpu_torch.ops.sweep_dense import bucket_apply
 
-    words, _ = sample_words_ref(consts, key_words, cooling, rank, cnt, frac)
+    words, _ = sample_words_ref(consts, key_words, cooling, rank, cnt, frac,
+                                "stoch", rng)
     sums = (bucket_apply(xs, pos, words, eta, phase.kernel_buckets, P)
             if phase.kernel_buckets else (None, None))
     return roll_apply_ref(xs, pos, words, eta, phase.roll_buckets, P, *sums)
 
 
 def plain_sweep_nd(cs, pos, rank, cnt, rev, length, phase, consts, key_words,
-                   eta, cooling, P, frac):
+                   eta, cooling, P, frac, rng="hash"):
     """One nD sweep composed from the plain versions (the nD bucket
-    kernel between them)."""
+    kernel between them, where the phase has kernel buckets)."""
     from gfasort_tpu_torch.ops.roll_apply import roll_apply_nd_ref
     from gfasort_tpu_torch.ops.sweep_common import sample_words_ref
     from gfasort_tpu_torch.ops.sweep_dense import dense_apply_nd
     from gfasort_tpu_torch.ops.sweep_nd import chosen_ends
 
     words, coin = sample_words_ref(consts, key_words, cooling, rank, cnt,
-                                   frac, coin=True)
+                                   frac, "stoch", rng, coin=True)
     my_pos, lane0, my_c = chosen_ends(cs, pos, length, rev, coin)
     sums = (dense_apply_nd(my_pos, words, my_c, eta, phase.kernel_buckets, P)
             if phase.kernel_buckets else (None, None))
@@ -779,19 +836,23 @@ def plain_sweep_nd(cs, pos, rank, cnt, rev, length, phase, consts, key_words,
                              phase.roll_buckets, P, *sums)
 
 
-def device_launches(fn):
+def device_launches(fn, tries: int = 2):
     """(device kernels and copies, their device ms) of one call of
     ``fn`` as ``torch.profiler`` records them; (None, None) where the
-    profiler records no device activity."""
+    profiler records no device activity in ``tries`` calls (it has
+    recorded none for a call whose neighbours it recorded)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev_events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev_events:
+            break
     if not dev_events:
         return None, None
     us = sum(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0)
@@ -799,24 +860,31 @@ def device_launches(fn):
     return len(dev_events), us / 1e3
 
 
-def phase_whole_sweep(bench, bench_plan, nd_plans, card_line):
-    """One consensus period of the 1D engine (the bench plan) and of the
-    2D engine (the layout plan) on the bench index: the engines'
-    ``sweep_once`` / ``nd_sweep_once`` with the kernels against the same
-    sweeps composed from the plain versions, then the consensus;
-    ``torch.equal`` on the state and the node positions.  Both timed on
-    the host clock from one synchronisation to the next; the device
-    launches and device ms of one sweep of each (``torch.profiler``)."""
+def phase_whole_sweep(bench, plans, card_line, dtype="float32"):
+    """One consensus period of the 1D engine (``plans[1]``, the bench
+    plan) and of the 2D engine (``plans[2]``, the layout plan) on the
+    bench index at ``dtype``: the engines' ``sweep_once`` /
+    ``nd_sweep_once`` with the kernels against the same sweeps composed
+    from the plain versions, then the consensus; ``torch.equal`` on the
+    state and the node positions.  At f64 the sampler draws threefry
+    bits (from the run's ``threefry_key_table``) and every bucket is a
+    roll bucket; the phase line is ``whole_sweep_f64`` and carries the
+    kernels' launches in the period.  Both timed on the host clock from
+    one synchronisation to the next; the device launches and device ms
+    of one sweep of each (``torch.profiler``)."""
     from gfasort_tpu_torch.convert import (initial_state, layout_static_arrays)
-    from gfasort_tpu_torch.ops.keys import key_data, sweep_key_table
+    from gfasort_tpu_torch.ops.keys import key_data
     from gfasort_tpu_torch.ops.node_sum import (JAX_ROW_RUN,
                                                 build_gather_consensus)
     from gfasort_tpu_torch.ops.sweep import sweep_once
-    from gfasort_tpu_torch.ops.sweep_common import sampler_consts
+    from gfasort_tpu_torch.ops.sweep_common import route_keys, sampler_consts
     from gfasort_tpu_torch.ops.sweep_nd import nd_sweep_once
 
     dev = torch.device("cuda")
-    pos, rank, cnt, rev, length = layout_static_arrays(bench, dev)
+    npd = np.dtype(dtype).type
+    tdt = getattr(torch, dtype)
+    name = "whole_sweep" if dtype == "float32" else "whole_sweep_f64"
+    pos, rank, cnt, rev, length = layout_static_arrays(bench, dev, npd)
 
     def period(fn, state, gc):
         torch.cuda.synchronize()
@@ -827,15 +895,17 @@ def phase_whole_sweep(bench, bench_plan, nd_plans, card_line):
         torch.cuda.synchronize()
         return state, xn, time.perf_counter() - t0
 
-    for dims, plan in ((1, bench_plan), (2, nd_plans[2])):
+    out = {}
+    for dims in (1, 2):
+        plan = plans[dims]
         P, ce = plan.proposals, plan.consensus_every
-        keys = sweep_key_table(key_data(11), ce, P)
-        consts = [[sampler_consts(ph, c, dev) for c in (False, True)]
+        keys = route_keys(key_data(11), ce, P, "hash", tdt)
+        consts = [[sampler_consts(ph, c, dev, tdt) for c in (False, True)]
                   for ph in plan.phases]
         if dims == 1:
             gc = build_gather_consensus(bench.step_node_idx, bench.num_nodes,
-                                        dev, run=JAX_ROW_RUN)
-            state0, _ = initial_state(bench, None, dev)
+                                        dev, run=JAX_ROW_RUN, dtype=npd)
+            state0, _ = initial_state(bench, None, dev, npd)
 
             def kernel(e, xs):
                 i, eta, cool = plan.sweep(e)
@@ -850,11 +920,11 @@ def phase_whole_sweep(bench, bench_plan, nd_plans, card_line):
                                       plan.active_frac)
         else:
             gc = build_gather_consensus(bench.step_node_idx, bench.num_nodes,
-                                        dev)
+                                        dev, dtype=npd)
             rng = np.random.default_rng(8)
             state0 = torch.from_numpy(np.concatenate([
                 bench_layout_coords(rng, bench.step_pos.astype(np.float32), 2)
-                for _ in range(2)])).to(dev)
+                for _ in range(2)])).to(tdt).to(dev)
 
             def kernel(e, cs):
                 i, eta, cool = plan.sweep(e)
@@ -868,59 +938,70 @@ def phase_whole_sweep(bench, bench_plan, nd_plans, card_line):
                                       plan.phases[i], consts[i][cool],
                                       keys[e], eta, cool, P, plan.active_frac)
 
+        reset_launches()
         s_k, xn_k, secs_k = period(kernel, state0, gc)
+        launches = {k: n for k, n in read_launches().items() if n}
         s_p, xn_p, secs_p = period(plain, state0, gc)
         same = torch.equal(s_k, s_p) and torch.equal(xn_k, xn_p)
         if not same:
             err = float((s_k - s_p).abs().max())
-            raise AssertionError(f"{dims}D: one consensus period with the "
-                                 f"kernels differs from the plain sweeps by "
-                                 f"{err}")
+            raise AssertionError(f"{dims}D {dtype}: one consensus period with "
+                                 f"the kernels differs from the plain sweeps "
+                                 f"by {err}")
         if not bool(torch.isfinite(s_k).all()):
-            raise AssertionError(f"{dims}D: the period's state is not finite")
+            raise AssertionError(f"{dims}D {dtype}: the period's state is not "
+                                 f"finite")
         n_dev, dev_ms = device_launches(lambda: kernel(0, state0))
         n_plain, plain_ms = device_launches(lambda: plain(0, state0))
-        say("whole_sweep", card_line, dims=dims, proposals=P,
+        say(name, card_line, dims=dims, dtype=dtype, proposals=P,
             sweeps=ce, steps=bench.total_steps, kernels_s=secs_k,
-            plain_s=secs_p, equal=True, device_launches_per_sweep=n_dev,
-            device_ms_per_sweep=dev_ms,
+            plain_s=secs_p, equal=True, kernel_launches=launches,
+            device_launches_per_sweep=n_dev, device_ms_per_sweep=dev_ms,
             plain_device_launches_per_sweep=n_plain,
             plain_device_ms_per_sweep=plain_ms,
             launch_count_source="torch.profiler" if n_dev is not None
             else "not measured: the profiler recorded no device activity")
+        out[dims] = launches
         del s_k, s_p, xn_k, xn_p, state0, gc, consts
     torch.cuda.empty_cache()
+    return out
 
 
-def phase_sweep_parts(bench, bench_plan, card_line, n_sweeps: int = 12):
+def phase_sweep_parts(bench, bench_plan, card_line, n_sweeps: int = 12,
+                      dtype: str = "float32", rng: str = "hash"):
     """``n_sweeps`` sweeps of the 1D engine on the bench index taken
     apart with CUDA events (the sampler kernel, the bucket kernel, the
     roll kernel with the combine, as ``sweep_once`` calls them), the
-    whole sweep, the plain composition and the consensus."""
+    whole sweep, the plain composition and the consensus; at ``dtype``
+    with the draws of ``rng`` (the threefry routes: ``rng`` "threefry",
+    or f64 with ``bench_plan`` the f64 plan)."""
     from gfasort_tpu_torch.convert import initial_state, static_arrays
-    from gfasort_tpu_torch.ops.keys import key_data, sweep_key_table
+    from gfasort_tpu_torch.ops.keys import key_data
     from gfasort_tpu_torch.ops.node_sum import (JAX_ROW_RUN,
                                                 build_gather_consensus)
     from gfasort_tpu_torch.ops.roll_apply import roll_apply
     from gfasort_tpu_torch.ops.sweep import sweep_once
-    from gfasort_tpu_torch.ops.sweep_common import sample_words, sampler_consts
+    from gfasort_tpu_torch.ops.sweep_common import (route_keys, sample_words,
+                                                    sampler_consts)
     from gfasort_tpu_torch.ops.sweep_dense import bucket_apply
 
     dev = torch.device("cuda")
     plan = bench_plan
     P = plan.proposals
-    pos, rank, cnt = static_arrays(bench, dev)
-    xs0, _ = initial_state(bench, None, dev)
-    consts = [[sampler_consts(ph, c, dev) for c in (False, True)]
+    npd = np.dtype(dtype).type
+    tdt = getattr(torch, dtype)
+    pos, rank, cnt = static_arrays(bench, dev, npd)
+    xs0, _ = initial_state(bench, None, dev, npd)
+    consts = [[sampler_consts(ph, c, dev, tdt) for c in (False, True)]
               for ph in plan.phases]
-    keys = sweep_key_table(key_data(12), n_sweeps, P)
+    keys = route_keys(key_data(12), n_sweeps, P, rng, tdt)
 
     def run_parts(e, xs, ev):
         i, eta, cool = plan.sweep(e)
         phase = plan.phases[i]
         ev[0].record()
         words, _ = sample_words(consts[i][cool], keys[e], cool, rank, cnt,
-                                plan.active_frac)
+                                plan.active_frac, "stoch", rng)
         ev[1].record()
         sums = (bucket_apply(xs, pos, words, eta, phase.kernel_buckets, P)
                 if phase.kernel_buckets else (None, None))
@@ -932,13 +1013,14 @@ def phase_sweep_parts(bench, bench_plan, card_line, n_sweeps: int = 12):
     def whole(e, xs):
         i, eta, cool = plan.sweep(e)
         return sweep_once(xs, pos, rank, cnt, plan.phases[i], consts[i][cool],
-                          keys[e], eta, cool, P, plan.active_frac)
+                          keys[e], eta, cool, P, plan.active_frac, "stoch",
+                          rng)
 
     def plain(e, xs):
         i, eta, cool = plan.sweep(e)
         return plain_sweep_1d(xs, pos, rank, cnt, plan.phases[i],
                               consts[i][cool], keys[e], eta, cool, P,
-                              plan.active_frac)
+                              plan.active_frac, rng)
 
     names = ("sampler", "kernel", "roll_combine")
     parts = dict.fromkeys(names, 0.0)
@@ -962,10 +1044,11 @@ def phase_sweep_parts(bench, bench_plan, card_line, n_sweeps: int = 12):
         raise AssertionError("the timed parts differ from sweep_once")
     plain_ms = cuda_ms(lambda: plain(0, xs0), 3)
     gc = build_gather_consensus(bench.step_node_idx, bench.num_nodes, dev,
-                                run=JAX_ROW_RUN)
+                                run=JAX_ROW_RUN, dtype=npd)
     cons_ms = cuda_ms(lambda: gc(x_w), 5)
-    say("sweep_parts", card_line, dims=1, proposals=P, steps=bench.total_steps,
-        sweeps_timed=n_sweeps,
+    say("sweep_parts", card_line, dims=1, dtype=dtype, rng=rng, proposals=P,
+        steps=bench.total_steps, sweeps_timed=n_sweeps,
+        kernel_buckets=sum(len(ph.kernel_buckets) for ph in plan.phases),
         ms_per_sweep={k: v / n_sweeps for k, v in parts.items()},
         whole_sweep_ms=whole_ms, plain_sweep_ms=plain_ms,
         consensus_ms=cons_ms, consensus_every=plan.consensus_every)
@@ -1298,11 +1381,48 @@ def rank_quality_of(x, x_ref):
                         np.argsort(x_ref, kind="stable"))
 
 
+@contextlib.contextmanager
+def plain_call_counter():
+    """Count the calls of the sampler's and the roll passes' plain
+    versions while the block runs: each is wrapped wherever a module of
+    the port holds it.  Yields the counts ({name: calls})."""
+    from gfasort_tpu_torch.ops import roll_apply, sweep_common
+
+    originals = {"sample_words_ref": sweep_common.sample_words_ref,
+                 "roll_apply_ref": roll_apply.roll_apply_ref,
+                 "roll_apply_nd_ref": roll_apply.roll_apply_nd_ref}
+    counts = dict.fromkeys(originals, 0)
+
+    def wrap(name, fn):
+        def counted(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    patched = []
+    for mod in [m for k, m in sys.modules.items()
+                if k.startswith("gfasort_tpu_torch") and m is not None]:
+        for name, fn in originals.items():
+            if getattr(mod, name, None) is fn:
+                setattr(mod, name, wrap(name, fn))
+                patched.append((mod, name, fn))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+
+
 def phase_sweep_mode(phase, bench, cert, card_line, dtype, rng):
-    """The 1D sweep engine at ``dtype`` with ``GFASORT_SWEEP_RNG=rng``:
-    timed on the bench index (a direct engine call, host set-up
-    included), with the bucket kernel's launches counted from 0 around
-    it, then certified on the certificate workload."""
+    """The 1D sweep engine at ``dtype`` with ``GFASORT_SWEEP_RNG=rng``
+    (the threefry routes: f32 threefry draws, and f64): timed on the
+    bench index (a direct engine call, host set-up included) at
+    SWEEP_MODE_ITER iterations and at the plan's full depth, each with
+    the kernels' launches counted from 0 around it (the sampler and the
+    roll kernel once per executed sweep, the bucket kernel as often at
+    f32 and never at f64) and the plain versions' calls counted (none),
+    then certified on the certificate workload.  Returns the full-depth
+    run's launches and seconds."""
     from gfasort_tpu_torch.ops.sweep import path_linear_sgd_sweep
     from gfasort_tpu_torch.ops.sweep_plan import make_sweep_plan
     from gfasort_tpu_torch.params import PathSGDParams
@@ -1310,36 +1430,42 @@ def phase_sweep_mode(phase, bench, cert, card_line, dtype, rng):
     old = os.environ.get("GFASORT_SWEEP_RNG")
     os.environ["GFASORT_SWEEP_RNG"] = rng
     try:
-        p = replace(PathSGDParams().derive_from_graph(bench), dtype=dtype,
-                    iter_max=SWEEP_MODE_ITER)
-        plan = make_sweep_plan(bench, p)
-        kernel_buckets = sum(len(ph.kernel_buckets) for ph in plan.phases)
-        roll_buckets = sum(len(ph.roll_buckets) for ph in plan.phases)
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        x = path_linear_sgd_sweep(None, p, bench, device="cuda")
-        secs = time.perf_counter() - t0
-        launches = read_launches()
-        if x.shape != (bench.num_nodes,) or not np.isfinite(x).all():
-            raise AssertionError(f"{phase}: positions not finite [N]")
-        want = 0 if dtype == "float64" else plan.n_exec
-        if dtype == "float64" and kernel_buckets:
-            raise AssertionError(f"{phase}: {kernel_buckets} kernel buckets")
-        # threefry draws and f64 run the plain sampler; f32 the kernels
-        for k, n in (("bucket_apply", want), ("roll_apply", want),
-                     ("sweep_sampler", 0)):
-            if launches[k] != n:
-                raise AssertionError(f"{phase}: {launches[k]} {k} launches, "
-                                     f"expected {n}")
-        updates = plan.n_sweeps * plan.updates_per_sweep
-        say(phase, card_line, part="bench", dtype=dtype, rng=plan.knobs.rng,
-            iter_max=SWEEP_MODE_ITER, nodes=bench.num_nodes, steps=bench.total_steps, engine_s=secs,
-            n_sweeps=plan.n_sweeps, exec_sweeps=plan.n_exec,
-            proposals=plan.proposals, kernel_buckets=kernel_buckets,
-            roll_buckets=roll_buckets, updates=updates,
-            pair_updates_per_s_engine=updates / secs,
-            kernel_launches=launches)
+        full = replace(PathSGDParams().derive_from_graph(bench), dtype=dtype)
+        for depth, p in (("cut", replace(full, iter_max=SWEEP_MODE_ITER)),
+                         ("full", full)):
+            plan = make_sweep_plan(bench, p)
+            kernel_buckets = sum(len(ph.kernel_buckets) for ph in plan.phases)
+            roll_buckets = sum(len(ph.roll_buckets) for ph in plan.phases)
+            if dtype == "float64" and kernel_buckets:
+                raise AssertionError(f"{phase}: {kernel_buckets} kernel "
+                                     f"buckets at f64")
+            reset_launches()
+            with plain_call_counter() as plain_calls:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x = path_linear_sgd_sweep(None, p, bench, device="cuda")
+                secs = time.perf_counter() - t0
+            launches = read_launches()
+            if x.shape != (bench.num_nodes,) or not np.isfinite(x).all():
+                raise AssertionError(f"{phase}: positions not finite [N]")
+            want = {"sweep_sampler": plan.n_exec, "roll_apply": plan.n_exec,
+                    "bucket_apply": 0 if dtype == "float64" else plan.n_exec}
+            for k, n in want.items():
+                if launches[k] != n:
+                    raise AssertionError(f"{phase}: {launches[k]} {k} "
+                                         f"launches, expected {n}")
+            if any(plain_calls.values()):
+                raise AssertionError(f"{phase}: the plain versions ran on "
+                                     f"the card: {plain_calls}")
+            updates = plan.n_sweeps * plan.updates_per_sweep
+            say(phase, card_line, part="bench", depth=depth, dtype=dtype,
+                rng=plan.knobs.rng, iter_max=p.iter_max,
+                nodes=bench.num_nodes, steps=bench.total_steps,
+                engine_s=secs, n_sweeps=plan.n_sweeps,
+                exec_sweeps=plan.n_exec, proposals=plan.proposals,
+                kernel_buckets=kernel_buckets, roll_buckets=roll_buckets,
+                updates=updates, pair_updates_per_s_engine=updates / secs,
+                kernel_launches=launches, plain_calls=plain_calls)
         pc = replace(cert["params"], dtype=dtype)
         t0 = time.perf_counter()
         xc = path_linear_sgd_sweep(None, pc, cert["pidx"], device="cuda")
@@ -1350,6 +1476,7 @@ def phase_sweep_mode(phase, bench, cert, card_line, dtype, rng):
             os.environ.pop("GFASORT_SWEEP_RNG", None)
         else:
             os.environ["GFASORT_SWEEP_RNG"] = old
+    return dict(launches=launches, engine_s=secs, exec_sweeps=plan.n_exec)
 
 
 def phase_batched_cli(gfa_in, tmp, card_line):
@@ -1994,11 +2121,12 @@ def phase_bench(card_line):
 
 
 def kernel_entry(name, source, replaces, launches, cases, main_case,
-                 library_ms=None, note=None):
+                 library_ms=None, note=None, routes=None):
     """One entry of the kernels line: the path's launch count and the
     main case's times and bound; the worst error of all cases.
     ``library_ms`` stays None where no single PyTorch call computes the
-    function."""
+    function.  ``routes``: the entries of the kernel's other routes (the
+    threefry and f64 configurations), each with its own launches."""
     entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches,
@@ -2009,6 +2137,8 @@ def kernel_entry(name, source, replaces, launches, cases, main_case,
     }
     if note:
         entry["note"] = note
+    if routes:
+        entry["routes"] = routes
     return entry
 
 
@@ -2058,7 +2188,7 @@ def main() -> int:
     kernels.library()
     ptxas = kernels.ptxas_report(log)
     say("build", card_line, seconds=t_build, library=lib_path.name,
-        ptxas=ptxas)
+        source_seconds=kernels.source_seconds(log), ptxas=ptxas)
 
     bench = synthetic_path_index(*BENCH_SHAPE, seed=0)
     bench_plan = make_sweep_plan(bench, PathSGDParams().derive_from_graph(bench))
@@ -2070,10 +2200,19 @@ def main() -> int:
                               bench.step_pos.astype(np.float32), card_line)
     sres, sweep_launches = phase_sweep_apply(bench_plan, bench, card_line)
     plans = {"1d": bench_plan, **nd_plans}
+    # the f64 route's plans: every bucket a roll bucket
+    plans64 = {1: make_sweep_plan(bench, replace(
+        PathSGDParams().derive_from_graph(bench), dtype="float64")),
+        2: make_layout_plan(bench, replace(
+            LayoutSGDParams().derive_from_graph(bench, 2), iter_max=30,
+            dtype="float64"))}
     samp = phase_sampler(bench, plans, card_line, ptxas)
     rres = phase_roll(bench, plans, card_line, ptxas)
-    phase_whole_sweep(bench, bench_plan, nd_plans, card_line)
+    phase_whole_sweep(bench, {1: bench_plan, 2: nd_plans[2]}, card_line)
+    whole64 = phase_whole_sweep(bench, plans64, card_line, "float64")
     phase_sweep_parts(bench, bench_plan, card_line)
+    phase_sweep_parts(bench, bench_plan, card_line, rng="threefry")
+    phase_sweep_parts(bench, plans64[1], card_line, dtype="float64")
     probe = phase_shift_probe(card_line)
     phase_entry(card_line)
 
@@ -2091,10 +2230,10 @@ def main() -> int:
         phase_server(gfa_in, tmp, card_line)
         phase_e2e(gfa_in, tmp, card_line)
         cert = phase_quality(card_line)
-        phase_sweep_mode("sweep_f64", bench, cert, card_line, "float64",
-                         "hash")
-        phase_sweep_mode("sweep_threefry", bench, cert, card_line, "float32",
-                         "threefry")
+        mode64 = phase_sweep_mode("sweep_f64", bench, cert, card_line,
+                                  "float64", "hash")
+        mode_tf = phase_sweep_mode("sweep_threefry", bench, cert, card_line,
+                                   "float32", "threefry")
         x_sharded = phase_sharded_sweep(gfa_in, tmp, bench, cert, card_line)
         phase_sharded_layout(gfa_in, tmp, card_line)
         phase_sharded_batched(gfa_in, tmp, cert, card_line)
@@ -2136,26 +2275,72 @@ def main() -> int:
                      "gfasort_tpu/ops/sweep_common.py:491-566, "
                      "gfasort_tpu/ops/sweep_common.py:249-269",
                      launches["sweep_sampler"] + launches_nd["sweep_sampler"],
-                     samp, samp["1d"],
+                     {k: v for k, v in samp.items() if v["route"] == "hash"},
+                     samp["1d"],
                      note=f"XLA fusions, no pallas_call; launches: "
                           f"{launches['sweep_sampler']} in sYgs's Y, "
                           f"{launches_nd['sweep_sampler']} in the 2D L; the "
                           f"times are the 1D plan's (phase 0, P = "
-                          f"{samp['1d']['P']}); max_abs_err of int32 words"),
+                          f"{samp['1d']['P']}); max_abs_err of int32 words",
+                     routes=[
+                         kernel_entry(
+                             "sweep_sampler:threefry_f32",
+                             "gfasort_tpu_torch/csrc/sweep_sampler.cu",
+                             "gfasort_tpu/ops/sweep_common.py:62-67",
+                             mode_tf["launches"]["sweep_sampler"],
+                             {k: v for k, v in samp.items()
+                              if v["route"] == "threefry"},
+                             samp["1d_threefry"],
+                             note="sweep_sampler_tf_kernel<float>; launches "
+                                  "in sweep_threefry's full-depth run"),
+                         kernel_entry(
+                             "sweep_sampler:f64",
+                             "gfasort_tpu_torch/csrc/sweep_sampler.cu",
+                             "gfasort_tpu/ops/sweep_common.py:62-67",
+                             mode64["launches"]["sweep_sampler"],
+                             {k: v for k, v in samp.items()
+                              if v["route"] == "f64"},
+                             samp["1d_f64"],
+                             note="sweep_sampler_tf_kernel<double>; launches "
+                                  "in sweep_f64's full-depth run")]),
         kernel_entry("roll_apply", "gfasort_tpu_torch/csrc/roll_apply.cu",
                      "gfasort_tpu/ops/sweep.py:328-380",
                      launches["roll_apply"],
-                     {k: v for k, v in rres.items() if k[0] == "1d"},
+                     {k: v for k, v in rres.items()
+                      if k[0] == "1d" and v["dtype"] == "float32"},
                      rres[("1d", 0)],
                      note="XLA fusion, no pallas_call; the times are plan "
-                          "phase 0's"),
+                          "phase 0's",
+                     routes=[kernel_entry(
+                         "roll_apply:f64",
+                         "gfasort_tpu_torch/csrc/roll_apply.cu",
+                         "gfasort_tpu/ops/sweep.py:328-380",
+                         mode64["launches"]["roll_apply"],
+                         {k: v for k, v in rres.items()
+                          if k[0] == "1d" and v["dtype"] == "float64"},
+                         rres[("1d", "f64_0")],
+                         note="roll_apply_kernel<double>; launches in "
+                              "sweep_f64's full-depth run; the times are "
+                              "plan phase 0's, every bucket rolled")]),
         kernel_entry("roll_apply_nd", "gfasort_tpu_torch/csrc/roll_apply.cu",
                      "gfasort_tpu/ops/sweep_nd.py:105-185",
                      launches_nd["roll_apply_nd"],
-                     {k: v for k, v in rres.items() if k[0] != "1d"},
+                     {k: v for k, v in rres.items()
+                      if k[0] != "1d" and v["dtype"] == "float32"},
                      rres[("2d", 0)],
                      note="XLA fusion, no pallas_call; the times are the 2D "
-                          "plan's phase 0"),
+                          "plan's phase 0",
+                     routes=[kernel_entry(
+                         "roll_apply_nd:f64",
+                         "gfasort_tpu_torch/csrc/roll_apply.cu",
+                         "gfasort_tpu/ops/sweep_nd.py:105-185",
+                         whole64[2]["roll_apply_nd"],
+                         {k: v for k, v in rres.items()
+                          if k[0] != "1d" and v["dtype"] == "float64"},
+                         rres[("2d", "f64_0")],
+                         note="roll_apply_nd_kernel<double>; launches in "
+                              "whole_sweep_f64's 2D period; the times are the "
+                              "2D plan's phase 0, every bucket rolled")]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

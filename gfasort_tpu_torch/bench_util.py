@@ -35,7 +35,7 @@ from .params import PathSGDParams
 
 __all__ = ["synthetic_path_index", "shuffled_path_index", "rank_quality",
            "bench_params", "bench_batched_1d", "bench_sweep_1d",
-           "bench_sweep_nd", "HBM_BYTES_S", "F32_OPS_S", "H100_SMS",
+           "bench_sweep_nd", "HBM_BYTES_S", "F32_OPS_S", "F64_OPS_S", "H100_SMS",
            "MAX_SM_CLOCK_MHZ", "INT32_OPS_PER_CLOCK", "CVT_OPS_PER_CLOCK",
            "roofline_model",
            "measure_applied_frac", "bench_native_1d", "bench_native_1d_mt",
@@ -52,6 +52,8 @@ BENCH_SHAPE = (1_000_000, 16, 250_000)
 # tensor cores.  ``roofline_model`` and ``chip_smoke.bound_ms`` read them.
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
+# f64 operations/s outside the tensor cores (the same data sheet, SXM)
+F64_OPS_S = 34e12
 # Per-clock rates of the H100 SXM's 132 SMs, from the CUDA C++
 # Programming Guide's arithmetic-throughput table for compute capability
 # 9.0: 32-bit integer add, multiply, shift, compare and logic at 64 per
@@ -797,7 +799,14 @@ def wide_offsets(pidx, params, K: int = 64) -> np.ndarray:
     return full[np.linspace(0, len(full) - 1, K).round().astype(np.int64)]
 
 
-def sampler_cases(pidx, plans, dev):
+# The sampler's routes: (name suffix, ``GFASORT_SWEEP_RNG``, dtype).  The
+# hash route at f32 is the default; threefry draws at f32 and every f64
+# run (always threefry) take the threefry kernel.
+SAMPLER_ROUTES = (("", "hash", "float32"), ("_threefry", "threefry", "float32"),
+                  ("_f64", "hash", "float64"))
+
+
+def sampler_cases(pidx, plans, dev, routes=SAMPLER_ROUTES):
     """The sampler kernel's cases on ``pidx`` (its real rank and cnt):
     the 1D plan's P (``plans["1d"]``), the 2D and 3D layout plans'
     (``plans[2]``, ``plans[3]``) with the end coin, and P = 1, each on
@@ -805,14 +814,19 @@ def sampler_cases(pidx, plans, dev):
     snap stoch and down; then the edges, each warm and cooling with both
     snaps: P = 5 with the coin (three unused fields), a 64-offset table
     (``wide_offsets``) and phase 0's offsets cut to their first half (z
-    past the last offset: promotions to oidx = K).  One dict per case:
-    ``name``, ``phase_of_plan``, ``P``, ``coin``, ``cooling``, ``frac``,
-    ``snap``, ``K``, ``main`` (the case each name is timed at: its first
-    phase, warm, fraction 1, stoch) and ``args`` for ``sample_words``."""
+    past the last offset: promotions to oidx = K).  All of them on every
+    route of ``routes`` (``SAMPLER_ROUTES``: hash f32, threefry f32 and
+    f64, the names suffixed "", "_threefry" and "_f64"), the threefry
+    routes from the ``threefry_key_table`` of the same keys.  One dict
+    per case: ``name``, ``route`` (the suffix's route: "hash",
+    "threefry" or "f64"), ``phase_of_plan``, ``P``, ``coin``,
+    ``cooling``, ``frac``, ``snap``, ``K``, ``main`` (the case each name
+    is timed at: its first phase, warm, fraction 1, stoch) and ``args``
+    for ``sample_words`` (the last one its ``rng``)."""
     import torch
 
-    from .ops.keys import key_data, sweep_key_table
-    from .ops.sweep_common import sampler_consts
+    from .ops.keys import key_data
+    from .ops.sweep_common import route_keys, sampler_consts
     from .params import PathSGDParams
 
     rank = torch.from_numpy(pidx.step_rank.astype(np.int32)).to(dev)
@@ -835,20 +849,24 @@ def sampler_cases(pidx, plans, dev):
         ("k64", 12, False, ("k64",), {"k64": wide}, edge_grid),
         ("past_last", 12, False, ("cut",), {"cut": cut}, edge_grid),
     ]
-    for name, P, coin, ph_ids, phases, cases in groups:
-        key_words = sweep_key_table(key_data(7), 1, P)[0]
-        for n_ph, ph_i in enumerate(ph_ids):
-            for n_c, (cooling, frac, snap) in enumerate(cases):
-                consts = sampler_consts(phases[ph_i], cooling, dev)
-                yield dict(name=name, phase_of_plan=ph_i, P=P, coin=coin,
-                           cooling=cooling, frac=frac, snap=snap,
-                           K=len(phases[ph_i].offs),
-                           main=n_ph == 0 and n_c == 0,
-                           args=(consts, key_words, cooling, rank, cnt, frac,
-                                 snap))
+    for suffix, rng, dtype in routes:
+        tdt = getattr(torch, dtype)
+        route = "f64" if dtype == "float64" else rng
+        for name, P, coin, ph_ids, phases, cases in groups:
+            key_words = route_keys(key_data(7), 1, P, rng, tdt)[0]
+            for n_ph, ph_i in enumerate(ph_ids):
+                for n_c, (cooling, frac, snap) in enumerate(cases):
+                    consts = sampler_consts(phases[ph_i], cooling, dev, tdt)
+                    yield dict(name=name + suffix, route=route,
+                               phase_of_plan=ph_i, P=P, coin=coin,
+                               cooling=cooling, frac=frac, snap=snap,
+                               K=len(phases[ph_i].offs),
+                               main=n_ph == 0 and n_c == 0,
+                               args=(consts, key_words, cooling, rank, cnt,
+                                     frac, snap, rng))
 
 
-def roll_cases(pidx, plans, dev):
+def roll_cases(pidx, plans, dev, f64: bool = True):
     """The roll kernels' cases on ``pidx``, from the sampler's words and
     the bucket kernels' sums: 1D at the 1D plan's P, 2D and 3D at the
     layout plans', each on plan phases 0 and 1 and on phase 0 with every
@@ -857,16 +875,21 @@ def roll_cases(pidx, plans, dev):
     roll buckets k > S / 2 at ki = 0, k = S + 7 and k = 2S + 3 (partners
     read mod S) and phase 0's kernel buckets; and in 3D plan phase 1 at
     P = 8 (``"1_p8"``: the sharded 3D layout's two words, its engine
-    having no proposal clamp).  One dict per case: ``dims``,
+    having no proposal clamp).  Then, with ``f64``, the f64 route's
+    cases in 1D, 2D and 3D (f64 state, the f64 sampler's words, every
+    bucket a roll bucket as the f64 plans have them): plan phases 0 and 1
+    (``"f64_0"``, ``"f64_1"``) and the edge (``"f64_edge"``: P = 5,
+    phase 0's buckets and the far ones).  One dict per case: ``dims``,
     ``phase_of_plan``, ``P``, ``kb``, ``rb``, ``kernel`` ("roll_apply" or
-    "roll_apply_nd"), ``words_in`` / ``words_out`` (the f32/i32 words
-    per step each input and output holds, for the byte bound) and
-    ``args`` for ``roll_apply`` / ``roll_apply_nd``."""
+    "roll_apply_nd"), ``dtype`` ("float32" or "float64"), ``words_in`` /
+    ``words_out`` (the 4-byte words per step each input and output
+    holds, for the byte bound) and ``args`` for ``roll_apply`` /
+    ``roll_apply_nd``."""
     import torch
 
     from .convert import layout_static_arrays
-    from .ops.keys import key_data, sweep_key_table
-    from .ops.sweep_common import sample_words, sampler_consts
+    from .ops.keys import key_data
+    from .ops.sweep_common import route_keys, sample_words, sampler_consts
     from .ops.sweep_dense import bucket_apply, dense_apply_nd
     from .ops.sweep_nd import chosen_ends
 
@@ -887,46 +910,70 @@ def roll_cases(pidx, plans, dev):
             ph = plan.phases[1]
             yield "1_p8", ph, 8, ph.kernel_buckets, ph.roll_buckets
 
+    def all_rolled(ph):
+        return tuple(sorted(ph.kernel_buckets + ph.roll_buckets,
+                            key=lambda b: b[1]))
+
+    def f64_phases(plan, P, dims):
+        for ph_i in (0, 1):
+            ph = plan.phases[ph_i]
+            yield f"f64_{ph_i}", ph, P, (), all_rolled(ph)
+        ph = plan.phases[0]
+        yield "f64_edge", ph, 5, (), all_rolled(ph) + edge_rb
+
     def n_words(P):
         return 1 if P == 1 else -(-P // 4)
 
+    # the f32 cases, then the f64 route's from a generator of their own
+    routes = [("float32", phases, rng)]
+    if f64:
+        routes.append(("float64", f64_phases, np.random.default_rng(4)))
     p1d = plans["1d"]
-    xs = torch.from_numpy((rng.standard_normal(S) * 100).astype(np.float32)).to(dev)
-    eta = float(p1d.sweep_eta[0])
-    for ph_i, ph, P, kb, rb in phases(p1d, p1d.proposals, 1):
-        key_words = sweep_key_table(key_data(5), 1, P)[0]
-        words, _ = sample_words(sampler_consts(ph, False, dev), key_words,
-                                False, rank, cnt, 1.0)
-        sums = bucket_apply(xs, pos, words, eta, kb, P) if kb else (None, None)
-        # xs, pos, dsum, csum and the words in, xs out
-        yield dict(dims=1, phase_of_plan=ph_i, P=P, kb=kb, rb=rb,
-                   kernel="roll_apply",
-                   words_in=2 + 2 * bool(kb) + n_words(P), words_out=1,
-                   args=(xs, pos, words, eta, rb, P, *sums))
-        del words, sums
-    del xs
-    for D in (2, 3):
-        plan = plans[D]
-        eta = float(plan.sweep_eta[0])
-        cs = torch.from_numpy(np.concatenate([
-            bench_layout_coords(rng, pidx.step_pos.astype(np.float32), D)
-            for _ in range(2)])).to(dev)
-        for ph_i, ph, P, kb, rb in phases(plan, plan.proposals, D):
-            key_words = sweep_key_table(key_data(6), 1, P)[0]
-            words, coin = sample_words(sampler_consts(ph, False, dev),
-                                       key_words, False, rank, cnt, 1.0,
-                                       coin=True)
-            my_pos, lane0, my_c = chosen_ends(cs, pos, length, rev, coin)
-            sums = (dense_apply_nd(my_pos, words, my_c, eta, kb, P) if kb
+    for dtype, route_phases, rng in routes:
+        tdt = getattr(torch, dtype)
+        w = 2 if dtype == "float64" else 1     # 4-byte words per value
+
+        def key_rows(seed, P):
+            # f64 draws threefry bits: the threefry_key_table of the keys
+            return route_keys(key_data(seed), 1, P, "hash", tdt)[0]
+
+        pos_t, len_t = pos.to(tdt), length.to(tdt)
+        xs = torch.from_numpy(rng.standard_normal(S) * 100).to(tdt).to(dev)
+        eta = float(p1d.sweep_eta[0])
+        for ph_i, ph, P, kb, rb in route_phases(p1d, p1d.proposals, 1):
+            words, _ = sample_words(sampler_consts(ph, False, dev, tdt),
+                                    key_rows(5, P), False, rank, cnt, 1.0)
+            sums = (bucket_apply(xs, pos_t, words, eta, kb, P) if kb
                     else (None, None))
-            # my_pos, my_c, lane0's byte, cs, acc, wacc and the words in,
-            # cs out
-            yield dict(dims=D, phase_of_plan=ph_i, P=P, kb=kb, rb=rb,
-                       kernel="roll_apply_nd",
-                       words_in=(1 + D + 0.25 + 2 * D + (D + 1) * bool(kb)
-                                 + n_words(P)),
-                       words_out=2 * D,
-                       args=(my_pos, my_c, lane0, cs, words, eta, rb, P,
-                             *sums))
-            del words, coin, my_pos, lane0, my_c, sums
-        del cs
+            # xs, pos, dsum, csum and the words in, xs out
+            yield dict(dims=1, phase_of_plan=ph_i, P=P, kb=kb, rb=rb,
+                       kernel="roll_apply", dtype=dtype,
+                       words_in=w * (2 + 2 * bool(kb)) + n_words(P),
+                       words_out=w, args=(xs, pos_t, words, eta, rb, P, *sums))
+            del words, sums
+        del xs
+        for D in (2, 3):
+            plan = plans[D]
+            eta = float(plan.sweep_eta[0])
+            cs = torch.from_numpy(np.concatenate([
+                bench_layout_coords(rng, pidx.step_pos.astype(np.float32), D)
+                for _ in range(2)])).to(tdt).to(dev)
+            for ph_i, ph, P, kb, rb in route_phases(plan, plan.proposals, D):
+                words, coin = sample_words(sampler_consts(ph, False, dev, tdt),
+                                           key_rows(6, P), False, rank, cnt, 1.0,
+                                           coin=True)
+                my_pos, lane0, my_c = chosen_ends(cs, pos_t, len_t, rev, coin)
+                sums = (dense_apply_nd(my_pos, words, my_c, eta, kb, P) if kb
+                        else (None, None))
+                # my_pos, my_c, lane0's byte, cs, acc, wacc and the words
+                # in, cs out
+                yield dict(dims=D, phase_of_plan=ph_i, P=P, kb=kb, rb=rb,
+                           kernel="roll_apply_nd", dtype=dtype,
+                           words_in=(w * (1 + D + 2 * D + (D + 1) * bool(kb))
+                                     + 0.25 + n_words(P)),
+                           words_out=w * 2 * D,
+                           args=(my_pos, my_c, lane0, cs, words, eta, rb, P,
+                                 *sums))
+                del words, coin, my_pos, lane0, my_c, sums
+            del cs
+        del pos_t, len_t

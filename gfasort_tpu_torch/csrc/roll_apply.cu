@@ -50,6 +50,15 @@
 // each [D, S] / [2D, S] row's pointer once per thread in 64 bits (2D * S
 // may pass 2^31 where S does not) and indexes it with the 32-bit step.
 // Loads go through __ldg from __restrict__ pointers.
+// Both kernels are templated on the float type as well: the f64 route
+// (gfasort_tpu/ops/sweep.py:328-380 and sweep_nd.py:105-185 at f64, where
+// every bucket of a phase is a roll bucket) runs them in double, with
+// the double ops in the same order (__d*_rn), the constants 1e-9, 0.5,
+// 1e-18 and 1e30 and eta in double, and the nD rsqrt as 1.0 /
+// __dsqrt_rn, as the plain version's sqrt_rn.  A double load is twice a
+// float's bytes, and the double IEEE divide and square root are long
+// instruction sequences: the f64 kernels are bound by those beside the
+// field match.
 // Left for later: evaluating each pair once (the bucket kernels' pair
 // table does not reach partners k > KMAX away).
 
@@ -68,20 +77,22 @@ constexpr int kThreads = 256;
 // an H100 (tools/kernel_ab.py), equal at 64 threads.
 constexpr int kThreadsNd = 128;
 
+// T: float or double, the run's dtype.
+template <typename T>
 struct RollParams {
-  const float* xs;        // 1D: [S] positions; nD: [D, S] my_c
-  const float* pos;       // [S] (nD: my_pos)
+  const T* xs;            // 1D: [S] positions; nD: [D, S] my_c
+  const T* pos;           // [S] (nD: my_pos)
   const int* words[kMaxWords];
-  const float* acc_in;    // 1D: dsum [S]; nD: acc [D, S]; NULL: +0
-  const float* w_in;      // csum / wacc [S]; NULL: +0
+  const T* acc_in;        // 1D: dsum [S]; nD: acc [D, S]; NULL: +0
+  const T* w_in;          // csum / wacc [S]; NULL: +0
   const uint8_t* lane0;   // nD: [S]
-  const float* cs;        // nD: [2D, S]
-  float* out;             // 1D: [S]; nD: [2D, S]
+  const T* cs;            // nD: [2D, S]
+  T* out;                 // 1D: [S]; nD: [2D, S]
   int S;
   int proposals;
   int n_words;
   int n_buckets;
-  float eta;
+  T eta;
   int k[kMaxBuckets];
   int ki[kMaxBuckets];
   int kmod[kMaxBuckets];      // k mod S
@@ -89,59 +100,80 @@ struct RollParams {
   uint32_t last_live;         // the used fields' top bits, last word
 };
 
+// Round-to-nearest arithmetic of either float type, in the plain
+// version's order (the build passes --fmad=false).
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ float abs_(float a) { return fabsf(a); }
+__device__ __forceinline__ double abs_(double a) { return fabs(a); }
+__device__ __forceinline__ float min_(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double min_(double a, double b) { return fmin(a, b); }
+template <typename T>
+__device__ __forceinline__ T to_float(int a);
+template <>
+__device__ __forceinline__ float to_float<float>(int a) { return __int2float_rn(a); }
+template <>
+__device__ __forceinline__ double to_float<double>(int a) { return __int2double_rn(a); }
+
 // d, valid weight, safe and mu of a pair, shared by both engines.
-__device__ __forceinline__ void pair_base(float pa, float pb, float weight,
-                                          float eta, float& w, float& safe,
-                                          float& mu) {
-  const float d = fabsf(__fsub_rn(pa, pb));
-  const bool valid = d != 0.0f;
-  w = valid ? weight : 0.0f;
-  safe = valid ? d : 1.0f;
-  mu = fminf(__fdiv_rn(eta, safe), 1.0f);
+template <typename T>
+__device__ __forceinline__ void pair_base(T pa, T pb, T weight, T eta, T& w,
+                                          T& safe, T& mu) {
+  const T d = abs_(sub_rn(pa, pb));
+  const bool valid = d != T(0);
+  w = valid ? weight : T(0);
+  safe = valid ? d : T(1);
+  mu = min_(div_rn(eta, safe), T(1));
 }
 
 // The 1D update a receives from the pair (a, b): -w * r_x.
-__device__ __forceinline__ float half_1d(float xa, float pa, float xb,
-                                         float pb, float weight, float eta,
-                                         float& w) {
-  float safe, mu;
+template <typename T>
+__device__ __forceinline__ T half_1d(T xa, T pa, T xb, T pb, T weight, T eta,
+                                     T& w) {
+  T safe, mu;
   pair_base(pa, pb, weight, eta, w, safe, mu);
-  float dx = __fsub_rn(xa, xb);
-  dx = dx == 0.0f ? 1e-9f : dx;
-  const float half_sgn = dx >= 0.0f ? 0.5f : -0.5f;
-  const float r = __fmul_rn(__fmul_rn(mu, __fsub_rn(fabsf(dx), safe)), half_sgn);
-  return __fmul_rn(-w, r);
+  T dx = sub_rn(xa, xb);
+  dx = dx == T(0) ? T(1e-9) : dx;
+  const T half_sgn = dx >= T(0) ? T(0.5) : T(-0.5);
+  const T r = mul_rn(mul_rn(mu, sub_rn(abs_(dx), safe)), half_sgn);
+  return mul_rn(-w, r);
 }
 
 // The nD updates a receives from the pair (a, b): -(w * r) * delta[d].
-template <int D>
-__device__ __forceinline__ void half_nd(float pa, const float (&ca)[D],
-                                        float pb, const float (&cb)[D],
-                                        float weight, float eta, float& w,
-                                        float (&upd)[D]) {
-  float safe, mu;
+template <typename T, int D>
+__device__ __forceinline__ void half_nd(T pa, const T (&ca)[D], T pb,
+                                        const T (&cb)[D], T weight, T eta,
+                                        T& w, T (&upd)[D]) {
+  T safe, mu;
   pair_base(pa, pb, weight, eta, w, safe, mu);
-  float delta[D];
+  T delta[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) delta[d] = __fsub_rn(ca[d], cb[d]);
-  float mag2 = __fmul_rn(delta[0], delta[0]);
+  for (int d = 0; d < D; ++d) delta[d] = sub_rn(ca[d], cb[d]);
+  T mag2 = mul_rn(delta[0], delta[0]);
 #pragma unroll
   for (int d = 1; d < D; ++d) {
-    mag2 = __fadd_rn(mag2, __fmul_rn(delta[d], delta[d]));
+    mag2 = add_rn(mag2, mul_rn(delta[d], delta[d]));
   }
-  if (mag2 == 0.0f) {
-    delta[0] = 1e-9f;
-    mag2 = 1e-18f;
+  if (mag2 == T(0)) {
+    delta[0] = T(1e-9);
+    mag2 = T(1e-18);
   }
-  const float inv = __fdiv_rn(1.0f, __fsqrt_rn(mag2));
-  const float mag = __fmul_rn(mag2, inv);
-  const float r_raw =
-      __fmul_rn(__fmul_rn(__fmul_rn(mu, __fsub_rn(mag, safe)), 0.5f), inv);
+  const T inv = div_rn(T(1), sqrt_rn(mag2));
+  const T mag = mul_rn(mag2, inv);
+  const T r_raw = mul_rn(mul_rn(mul_rn(mu, sub_rn(mag, safe)), T(0.5)), inv);
   // a NaN passes through, as in torch.clamp_max
-  const float r = r_raw > 1e30f ? 1e30f : r_raw;
-  const float neg_wr = -__fmul_rn(w, r);
+  const T r = r_raw > T(1e30) ? T(1e30) : r_raw;
+  const T neg_wr = -mul_rn(w, r);
 #pragma unroll
-  for (int d = 0; d < D; ++d) upd[d] = __fmul_rn(neg_wr, delta[d]);
+  for (int d = 0; d < D; ++d) upd[d] = mul_rn(neg_wr, delta[d]);
 }
 
 // 0x80 in each 8-bit field of w equal to the broadcast byte b4, 0
@@ -155,13 +187,13 @@ __device__ __forceinline__ uint32_t eq_fields(uint32_t w, uint32_t b4,
 // The weight of a pair, a word at a time: the proposals whose own
 // field is the byte `mine` (broadcast), or, where `guard` holds, whose
 // partner's field is `theirs`.  NW == 0: the raw choices (P == 1).
-template <int NW>
-__device__ __forceinline__ float weight_words(const uint32_t (&wa)[kMaxWords],
-                                              const uint32_t (&wb)[kMaxWords],
-                                              uint32_t mine, uint32_t theirs,
-                                              bool guard, uint32_t last_live) {
+template <typename T, int NW>
+__device__ __forceinline__ T weight_words(const uint32_t (&wa)[kMaxWords],
+                                          const uint32_t (&wb)[kMaxWords],
+                                          uint32_t mine, uint32_t theirs,
+                                          bool guard, uint32_t last_live) {
   if (NW == 0) {
-    return wa[0] == mine || (guard && wb[0] == theirs) ? 1.0f : 0.0f;
+    return wa[0] == mine || (guard && wb[0] == theirs) ? T(1) : T(0);
   }
   const uint32_t g = guard ? 0xFFFFFFFFu : 0u;
   uint32_t m = 0u;
@@ -172,11 +204,11 @@ __device__ __forceinline__ float weight_words(const uint32_t (&wa)[kMaxWords],
     m |= (eq_fields(wa[j], mine, live) | (eq_fields(wb[j], theirs, live) & g))
          >> j;
   }
-  return __int2float_rn(__popc(m));
+  return to_float<T>(__popc(m));
 }
 
-template <int NW>
-__device__ __forceinline__ void load_words_n(const RollParams& prm, int i,
+template <int NW, typename P>
+__device__ __forceinline__ void load_words_n(const P& prm, int i,
                                              uint32_t (&w)[kMaxWords]) {
 #pragma unroll
   for (int j = 0; j < (NW == 0 ? 1 : NW); ++j) {
@@ -206,20 +238,20 @@ __device__ __forceinline__ void bucket_choices(int ki, uint32_t& plus,
 }
 
 // NW: choice words per step (1-4), 0 for the raw choices of P == 1.
-template <int NW>
+template <typename T, int NW>
 __global__ void __launch_bounds__(kThreads)
-roll_apply_kernel(const RollParams prm) {
+roll_apply_kernel(const RollParams<T> prm) {
   const int S = prm.S;
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= S) return;
-  const float* __restrict__ xs = prm.xs;
-  const float* __restrict__ pos = prm.pos;
-  const float x = __ldg(xs + t);
-  const float p = __ldg(pos + t);
+  const T* __restrict__ xs = prm.xs;
+  const T* __restrict__ pos = prm.pos;
+  const T x = __ldg(xs + t);
+  const T p = __ldg(pos + t);
   uint32_t mine[kMaxWords];
   load_words_n<NW>(prm, t, mine);
-  float dsum = prm.acc_in ? __ldg(prm.acc_in + t) : 0.0f;
-  float csum = prm.w_in ? __ldg(prm.w_in + t) : 0.0f;
+  T dsum = prm.acc_in ? __ldg(prm.acc_in + t) : T(0);
+  T csum = prm.w_in ? __ldg(prm.w_in + t) : T(0);
   for (int b = 0; b < prm.n_buckets; ++b) {
     int ja, jb;
     partners(t, prm.kmod[b], S, ja, jb);
@@ -228,49 +260,51 @@ roll_apply_kernel(const RollParams prm) {
     uint32_t wa[kMaxWords], wb[kMaxWords];
     load_words_n<NW>(prm, ja, wa);
     load_words_n<NW>(prm, jb, wb);
-    const float xa = __ldg(xs + ja), pa = __ldg(pos + ja);
-    const float xb = __ldg(xs + jb), pb = __ldg(pos + jb);
-    float w1, w2;
+    const T xa = __ldg(xs + ja), pa = __ldg(pos + ja);
+    const T xb = __ldg(xs + jb), pb = __ldg(pos + jb);
+    T w1, w2;
     // partner ahead (t + k): I chose +k, or they chose -k
-    const float u1 = half_1d(
+    const T u1 = half_1d(
         x, p, xa, pa,
-        weight_words<NW>(mine, wa, plus, minus, t < prm.ahead[b], prm.last_live),
+        weight_words<T, NW>(mine, wa, plus, minus, t < prm.ahead[b],
+                            prm.last_live),
         prm.eta, w1);
     // partner behind (t - k): I chose -k, or they chose +k
-    const float u2 = half_1d(
+    const T u2 = half_1d(
         x, p, xb, pb,
-        weight_words<NW>(mine, wb, minus, plus, t >= prm.k[b], prm.last_live),
+        weight_words<T, NW>(mine, wb, minus, plus, t >= prm.k[b],
+                            prm.last_live),
         prm.eta, w2);
-    dsum = __fadd_rn(__fadd_rn(dsum, u1), u2);
-    csum = __fadd_rn(__fadd_rn(csum, w1), w2);
+    dsum = add_rn(add_rn(dsum, u1), u2);
+    csum = add_rn(add_rn(csum, w1), w2);
   }
-  prm.out[t] = __fadd_rn(x, __fdiv_rn(dsum, csum < 1.0f ? 1.0f : csum));
+  prm.out[t] = add_rn(x, div_rn(dsum, csum < T(1) ? T(1) : csum));
 }
 
 // D: dimensions (1-8); NW: choice words per step (1-4), 0 for the raw
 // choices of P == 1.
-template <int D, int NW>
+template <typename T, int D, int NW>
 __global__ void __launch_bounds__(kThreadsNd)
-roll_apply_nd_kernel(const RollParams prm) {
+roll_apply_nd_kernel(const RollParams<T> prm) {
   const int S = prm.S;
   const int t = blockIdx.x * kThreadsNd + threadIdx.x;
   if (t >= S) return;
-  const float* __restrict__ pos = prm.pos;
+  const T* __restrict__ pos = prm.pos;
   // row d of [D, S] / [2D, S] at d * S, formed in 64 bits
-  const float* __restrict__ rows[D];
+  const T* __restrict__ rows[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) rows[d] = prm.xs + static_cast<long long>(d) * S;
-  const float p = __ldg(pos + t);
-  float c[D], acc[D];
+  const T p = __ldg(pos + t);
+  T c[D], acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     c[d] = __ldg(rows[d] + t);
     acc[d] = prm.acc_in ? __ldg(prm.acc_in + static_cast<long long>(d) * S + t)
-                        : 0.0f;
+                        : T(0);
   }
   uint32_t mine[kMaxWords];
   load_words_n<NW>(prm, t, mine);
-  float wacc = prm.w_in ? __ldg(prm.w_in + t) : 0.0f;
+  T wacc = prm.w_in ? __ldg(prm.w_in + t) : T(0);
   for (int b = 0; b < prm.n_buckets; ++b) {
     int ja, jb;
     partners(t, prm.kmod[b], S, ja, jb);
@@ -279,47 +313,47 @@ roll_apply_nd_kernel(const RollParams prm) {
     uint32_t wa[kMaxWords], wb[kMaxWords];
     load_words_n<NW>(prm, ja, wa);
     load_words_n<NW>(prm, jb, wb);
-    float ca[D], cb[D];
+    T ca[D], cb[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       ca[d] = __ldg(rows[d] + ja);
       cb[d] = __ldg(rows[d] + jb);
     }
-    const float pa = __ldg(pos + ja), pb = __ldg(pos + jb);
-    float u1[D], u2[D], w1, w2;
+    const T pa = __ldg(pos + ja), pb = __ldg(pos + jb);
+    T u1[D], u2[D], w1, w2;
     // partner ahead (t + k): I chose +k, or they chose -k
-    half_nd<D>(p, c, pa, ca,
-               weight_words<NW>(mine, wa, plus, minus, t < prm.ahead[b],
-                                prm.last_live),
-               prm.eta, w1, u1);
+    half_nd<T, D>(p, c, pa, ca,
+                  weight_words<T, NW>(mine, wa, plus, minus, t < prm.ahead[b],
+                                      prm.last_live),
+                  prm.eta, w1, u1);
     // partner behind (t - k): I chose -k, or they chose +k
-    half_nd<D>(p, c, pb, cb,
-               weight_words<NW>(mine, wb, minus, plus, t >= prm.k[b],
-                                prm.last_live),
-               prm.eta, w2, u2);
+    half_nd<T, D>(p, c, pb, cb,
+                  weight_words<T, NW>(mine, wb, minus, plus, t >= prm.k[b],
+                                      prm.last_live),
+                  prm.eta, w2, u2);
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = __fadd_rn(__fadd_rn(acc[d], u1[d]), u2[d]);
-    wacc = __fadd_rn(__fadd_rn(wacc, w1), w2);
+    for (int d = 0; d < D; ++d) acc[d] = add_rn(add_rn(acc[d], u1[d]), u2[d]);
+    wacc = add_rn(add_rn(wacc, w1), w2);
   }
   // the chosen end's rows take the mean update, the other end's + 0
   const bool lane0 = __ldg(prm.lane0 + t) != 0;
-  const float div = wacc < 1.0f ? 1.0f : wacc;
+  const T div = wacc < T(1) ? T(1) : wacc;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    const float upd = __fdiv_rn(acc[d], div);
+    const T upd = div_rn(acc[d], div);
     const long long r0 = static_cast<long long>(d) * S + t;
     const long long r1 = static_cast<long long>(D + d) * S + t;
-    prm.out[r0] = __fadd_rn(__ldg(prm.cs + r0), lane0 ? upd : 0.0f);
-    prm.out[r1] = __fadd_rn(__ldg(prm.cs + r1), lane0 ? 0.0f : upd);
+    prm.out[r0] = add_rn(__ldg(prm.cs + r0), lane0 ? upd : T(0));
+    prm.out[r1] = add_rn(__ldg(prm.cs + r1), lane0 ? T(0) : upd);
   }
 }
 
-int check_and_fill(RollParams& prm, int device, const float* xs,
-                   const float* pos, const int* w0, const int* w1,
-                   const int* w2, const int* w3, int n_words, int proposals,
-                   int S, float eta, const int* ks, const int* kis,
-                   int n_buckets, const float* acc_in, const float* w_in,
-                   float* out) {
+template <typename T>
+int check_and_fill(RollParams<T>& prm, int device, const T* xs, const T* pos,
+                   const int* w0, const int* w1, const int* w2, const int* w3,
+                   int n_words, int proposals, int S, T eta, const int* ks,
+                   const int* kis, int n_buckets, const T* acc_in,
+                   const T* w_in, T* out) {
   if (S <= 0 || n_buckets < 0 || n_buckets > kMaxBuckets || n_words < 1 ||
       n_words > kMaxWords || proposals < 1 || proposals > kMaxProposals ||
       (proposals == 1 && n_words != 1) ||
@@ -359,15 +393,68 @@ int check_and_fill(RollParams& prm, int device, const float* xs,
   return 0;
 }
 
-template <int D>
-void launch_nd(const RollParams& prm, int blocks, cudaStream_t st) {
-  switch (prm.proposals == 1 ? 0 : prm.n_words) {
-    case 0: roll_apply_nd_kernel<D, 0><<<blocks, kThreadsNd, 0, st>>>(prm); break;
-    case 1: roll_apply_nd_kernel<D, 1><<<blocks, kThreadsNd, 0, st>>>(prm); break;
-    case 2: roll_apply_nd_kernel<D, 2><<<blocks, kThreadsNd, 0, st>>>(prm); break;
-    case 3: roll_apply_nd_kernel<D, 3><<<blocks, kThreadsNd, 0, st>>>(prm); break;
-    default: roll_apply_nd_kernel<D, 4><<<blocks, kThreadsNd, 0, st>>>(prm); break;
+template <typename T>
+int roll_1d(int device, const T* xs, const T* pos, const int* w0,
+            const int* w1, const int* w2, const int* w3, int n_words,
+            int proposals, int S, T eta, const int* ks, const int* kis,
+            int n_buckets, const T* dsum, const T* csum, T* out,
+            void* stream) {
+  RollParams<T> prm;
+  const int err = check_and_fill(prm, device, xs, pos, w0, w1, w2, w3,
+                                 n_words, proposals, S, eta, ks, kis,
+                                 n_buckets, dsum, csum, out);
+  if (err != 0) return err;
+  const int blocks = (S + kThreads - 1) / kThreads;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (proposals == 1 ? 0 : n_words) {
+    case 0: roll_apply_kernel<T, 0><<<blocks, kThreads, 0, st>>>(prm); break;
+    case 1: roll_apply_kernel<T, 1><<<blocks, kThreads, 0, st>>>(prm); break;
+    case 2: roll_apply_kernel<T, 2><<<blocks, kThreads, 0, st>>>(prm); break;
+    case 3: roll_apply_kernel<T, 3><<<blocks, kThreads, 0, st>>>(prm); break;
+    default: roll_apply_kernel<T, 4><<<blocks, kThreads, 0, st>>>(prm); break;
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+void launch_nd(const RollParams<T>& prm, int blocks, cudaStream_t st) {
+  switch (prm.proposals == 1 ? 0 : prm.n_words) {
+    case 0: roll_apply_nd_kernel<T, D, 0><<<blocks, kThreadsNd, 0, st>>>(prm); break;
+    case 1: roll_apply_nd_kernel<T, D, 1><<<blocks, kThreadsNd, 0, st>>>(prm); break;
+    case 2: roll_apply_nd_kernel<T, D, 2><<<blocks, kThreadsNd, 0, st>>>(prm); break;
+    case 3: roll_apply_nd_kernel<T, D, 3><<<blocks, kThreadsNd, 0, st>>>(prm); break;
+    default: roll_apply_nd_kernel<T, D, 4><<<blocks, kThreadsNd, 0, st>>>(prm); break;
+  }
+}
+
+template <typename T>
+int roll_nd(int device, const T* my_pos, const T* my_c, int D,
+            const unsigned char* lane0, const T* cs, const int* w0,
+            const int* w1, const int* w2, const int* w3, int n_words,
+            int proposals, int S, T eta, const int* ks, const int* kis,
+            int n_buckets, const T* acc, const T* wacc, T* out,
+            void* stream) {
+  if (D < 1 || D > kMaxDims) return static_cast<int>(cudaErrorInvalidValue);
+  RollParams<T> prm;
+  const int err = check_and_fill(prm, device, my_c, my_pos, w0, w1, w2, w3,
+                                 n_words, proposals, S, eta, ks, kis,
+                                 n_buckets, acc, wacc, out);
+  if (err != 0) return err;
+  prm.lane0 = lane0;
+  prm.cs = cs;
+  const int blocks = (S + kThreadsNd - 1) / kThreadsNd;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 1: launch_nd<T, 1>(prm, blocks, st); break;
+    case 2: launch_nd<T, 2>(prm, blocks, st); break;
+    case 3: launch_nd<T, 3>(prm, blocks, st); break;
+    case 4: launch_nd<T, 4>(prm, blocks, st); break;
+    case 5: launch_nd<T, 5>(prm, blocks, st); break;
+    case 6: launch_nd<T, 6>(prm, blocks, st); break;
+    case 7: launch_nd<T, 7>(prm, blocks, st); break;
+    default: launch_nd<T, 8>(prm, blocks, st); break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -376,28 +463,25 @@ void launch_nd(const RollParams& prm, int blocks, cudaStream_t st) {
 // (n_words of them, the rest NULL), dsum / csum (NULL: +0), out.  Host
 // arrays: ks, kis (n_buckets entries, 0 allowed: the combine alone).
 // Launch on `stream` of device `device`; return cudaGetLastError() as an
-// int (0 = launched).
+// int (0 = launched).  The _f64 entry points take double arrays and eta.
 extern "C" int gfasort_roll_apply(
     int device, const float* xs, const float* pos,
     const int* w0, const int* w1, const int* w2, const int* w3,
     int n_words, int proposals, int S, float eta,
     const int* ks, const int* kis, int n_buckets,
     const float* dsum, const float* csum, float* out, void* stream) {
-  RollParams prm;
-  const int err = check_and_fill(prm, device, xs, pos, w0, w1, w2, w3,
-                                 n_words, proposals, S, eta, ks, kis,
-                                 n_buckets, dsum, csum, out);
-  if (err != 0) return err;
-  const int blocks = (S + kThreads - 1) / kThreads;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (proposals == 1 ? 0 : n_words) {
-    case 0: roll_apply_kernel<0><<<blocks, kThreads, 0, st>>>(prm); break;
-    case 1: roll_apply_kernel<1><<<blocks, kThreads, 0, st>>>(prm); break;
-    case 2: roll_apply_kernel<2><<<blocks, kThreads, 0, st>>>(prm); break;
-    case 3: roll_apply_kernel<3><<<blocks, kThreads, 0, st>>>(prm); break;
-    default: roll_apply_kernel<4><<<blocks, kThreads, 0, st>>>(prm); break;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return roll_1d<float>(device, xs, pos, w0, w1, w2, w3, n_words, proposals,
+                        S, eta, ks, kis, n_buckets, dsum, csum, out, stream);
+}
+
+extern "C" int gfasort_roll_apply_f64(
+    int device, const double* xs, const double* pos,
+    const int* w0, const int* w1, const int* w2, const int* w3,
+    int n_words, int proposals, int S, double eta,
+    const int* ks, const int* kis, int n_buckets,
+    const double* dsum, const double* csum, double* out, void* stream) {
+  return roll_1d<double>(device, xs, pos, w0, w1, w2, w3, n_words, proposals,
+                         S, eta, ks, kis, n_buckets, dsum, csum, out, stream);
 }
 
 // The nD twin: my_pos [S], my_c [D, S], lane0 [S] (bytes 0 / 1), cs
@@ -409,25 +493,19 @@ extern "C" int gfasort_roll_apply_nd(
     int n_words, int proposals, int S, float eta,
     const int* ks, const int* kis, int n_buckets,
     const float* acc, const float* wacc, float* out, void* stream) {
-  if (D < 1 || D > kMaxDims) return static_cast<int>(cudaErrorInvalidValue);
-  RollParams prm;
-  const int err = check_and_fill(prm, device, my_c, my_pos, w0, w1, w2, w3,
-                                 n_words, proposals, S, eta, ks, kis,
-                                 n_buckets, acc, wacc, out);
-  if (err != 0) return err;
-  prm.lane0 = lane0;
-  prm.cs = cs;
-  const int blocks = (S + kThreadsNd - 1) / kThreadsNd;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 1: launch_nd<1>(prm, blocks, st); break;
-    case 2: launch_nd<2>(prm, blocks, st); break;
-    case 3: launch_nd<3>(prm, blocks, st); break;
-    case 4: launch_nd<4>(prm, blocks, st); break;
-    case 5: launch_nd<5>(prm, blocks, st); break;
-    case 6: launch_nd<6>(prm, blocks, st); break;
-    case 7: launch_nd<7>(prm, blocks, st); break;
-    default: launch_nd<8>(prm, blocks, st); break;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return roll_nd<float>(device, my_pos, my_c, D, lane0, cs, w0, w1, w2, w3,
+                        n_words, proposals, S, eta, ks, kis, n_buckets, acc,
+                        wacc, out, stream);
+}
+
+extern "C" int gfasort_roll_apply_nd_f64(
+    int device, const double* my_pos, const double* my_c, int D,
+    const unsigned char* lane0, const double* cs,
+    const int* w0, const int* w1, const int* w2, const int* w3,
+    int n_words, int proposals, int S, double eta,
+    const int* ks, const int* kis, int n_buckets,
+    const double* acc, const double* wacc, double* out, void* stream) {
+  return roll_nd<double>(device, my_pos, my_c, D, lane0, cs, w0, w1, w2, w3,
+                         n_words, proposals, S, eta, ks, kis, n_buckets, acc,
+                         wacc, out, stream);
 }

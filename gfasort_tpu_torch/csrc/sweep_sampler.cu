@@ -52,6 +52,26 @@
 // library functions (never __expf), NaN becomes 0 before the clamps
 // (fmaxf drops it), and float-to-int conversions truncate, so the words
 // equal the plain version's on the card bit for bit.
+//
+// The threefry routes (GFASORT_SWEEP_RNG=threefry at f32, and every f64
+// run) have their own kernel, sweep_sampler_tf_kernel<T, DEPTH>, for the
+// JAX package's threefry draws (gfasort_tpu/ops/sweep_common.py:62-67):
+// per proposal the keys (k1, k2) = split(key, 2) come from the host (the
+// run's keys.threefry_key_table), and each step draws in registers,
+// with threefry2x32 (20 rounds) of the counter (0, t): bits = b1 ^ b2
+// under k1, and under k2 u = ((b1 ^ b2) >> 9 | 1.0f) - 1 at f32 or
+// u = ((b1 << 20 | b2 >> 12) | 1.0) - 1 at f64; no [S] draw is written.
+// Both kernels share the per-step chains (step_chains) and the
+// per-proposal sampler (propose), templated on the float type: at
+// double the Zipf draw's exp(alpha * log(arg)) and its 1e-30 clamp, the
+// NaN guard, the truncations, the snap's divide and u2 run in double,
+// with the library exp / log (never intrinsics) and IEEE double ops.
+// What bounds the threefry kernel: integer work, two threefry calls of
+// ~76 int32 ops a proposal beside the sampler's ~30, and at f64 the
+// double divide, exp and log.  P is a runtime value there (a loop over
+// the packed words, the four fields of a word unrolled): the hash
+// kernel's per-P instantiation would triple the build for routes that
+// plans choose rarely.
 // Left for later: folding the sampler into the bucket kernel, so the
 // words never go through memory; compacting a warp's Zipf draws in the
 // warm case, where half the lanes discard theirs (the draw is ~30% of a
@@ -99,15 +119,95 @@ struct SamplerParams {
   uint32_t salt[kMaxProposals];  // b2 * 0x9E3779B9 + 0x632BE59B
 };
 
+// The threefry kernel's parameters: the constants in T, and in place of
+// the hash words each proposal's key schedules.
+template <typename T>
+struct TfParams {
+  const int* rank;            // [S]
+  const int* cnt;             // [S]
+  const int* offs;            // [K], ascending
+  const T* zeta;              // [K]
+  const T* eta_z;             // [K]
+  const T* zeta2theta;        // []
+  const T* alpha;             // []
+  int* words[kMaxWords];      // ceil(P/4) packed words, or the raw choices
+  uint8_t* coin;              // [S] proposal 0's end coin, or NULL
+  int S;
+  int K;
+  int space;
+  int cooling;
+  int thresh;                 // the activity coin's bound; < 0: all active
+  int snap_down;
+  int proposals;
+  // per proposal the key schedules of k1 (bits) and k2 (u): (k0, k1,
+  // k0 ^ k1 ^ 0x1BD11BDA) each
+  uint32_t ks[kMaxProposals][6];
+};
+
 // Per count c = oidx + 1: the snapped offset offs[oidx] (torch's wrap
 // for oidx = -1), offs[min(oidx + 1, K - 1)], the first as a float and
 // the span max(float(hi) - float(lo), 1) of the stochastic snap.
+template <typename T>
 struct __align__(16) Snap {
   int lo;
   int hi;
-  float lo_f;
-  float span;
+  T lo_f;
+  T span;
 };
+
+// Per count: the Zipf constants (zeta, eta_z) of the count's bucket.
+template <typename T>
+struct __align__(2 * sizeof(T)) Chain {
+  T zeta;
+  T eta_z;
+};
+
+// Round-to-nearest arithmetic of either float type, in the plain
+// version's order (the build passes --fmad=false); exp and log are the
+// library's IEEE-accurate functions, as torch's CUDA exp / log.
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float exp_lib(float a) { return expf(a); }
+__device__ __forceinline__ double exp_lib(double a) { return exp(a); }
+__device__ __forceinline__ float log_lib(float a) { return logf(a); }
+__device__ __forceinline__ double log_lib(double a) { return log(a); }
+__device__ __forceinline__ float fmax_(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double fmax_(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float fmin_(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double fmin_(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ int trunc_i(float a) { return __float2int_rz(a); }
+__device__ __forceinline__ int trunc_i(double a) { return __double2int_rz(a); }
+template <typename T>
+__device__ __forceinline__ T to_float(int a);
+template <>
+__device__ __forceinline__ float to_float<float>(int a) { return __int2float_rn(a); }
+template <>
+__device__ __forceinline__ double to_float<double>(int a) { return __int2double_rn(a); }
+// A value kept in a register: the compiler would recompute it per
+// proposal.
+__device__ __forceinline__ void pin(float& a) { asm volatile("" : "+f"(a)); }
+__device__ __forceinline__ void pin(double& a) { asm volatile("" : "+d"(a)); }
+__device__ __forceinline__ void pin(int& a) { asm volatile("" : "+r"(a)); }
+
+// u2 = ((bits >> 20) & 0x1FF) * 2^-9, exactly, without a conversion:
+// the nine bits as the top of a mantissa, 1 + u2 - 1.
+__device__ __forceinline__ void u2_of(uint32_t bits, float& u2) {
+  u2 = __fsub_rn(
+      __uint_as_float(((bits >> 6) & (0x1FFu << 14)) | 0x3F800000u), 1.0f);
+}
+__device__ __forceinline__ void u2_of(uint32_t bits, double& u2) {
+  const unsigned long long m =
+      static_cast<unsigned long long>((bits >> 20) & 0x1FFu) << 43;
+  u2 = __dsub_rn(
+      __longlong_as_double(static_cast<long long>(m | 0x3FF0000000000000ull)),
+      1.0);
+}
 
 // The murmur3 finaliser after its first product (sweep_common._mix is
 // mix_tail(x * 0x9E3779B9)).
@@ -121,6 +221,49 @@ __device__ __forceinline__ uint32_t mix_tail(uint32_t x) {
 
 __device__ __forceinline__ uint32_t mix(uint32_t x) {
   return mix_tail(x * kGolden);
+}
+
+template <int R0, int R1, int R2, int R3>
+__device__ __forceinline__ void threefry_rounds(uint32_t& x0, uint32_t& x1) {
+  x0 += x1; x1 = __funnelshift_l(x1, x1, R0) ^ x0;
+  x0 += x1; x1 = __funnelshift_l(x1, x1, R1) ^ x0;
+  x0 += x1; x1 = __funnelshift_l(x1, x1, R2) ^ x0;
+  x0 += x1; x1 = __funnelshift_l(x1, x1, R3) ^ x0;
+}
+
+// threefry2x32, 20 rounds, of the counter (0, lo) under the key schedule
+// (k0, k1, k2 = k0 ^ k1 ^ 0x1BD11BDA): ops/jrandom.threefry2x32.
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t k2, uint32_t lo,
+                                             uint32_t& b1, uint32_t& b2) {
+  uint32_t x0 = k0;
+  uint32_t x1 = lo + k1;
+  threefry_rounds<13, 15, 26, 6>(x0, x1);
+  x0 += k1; x1 += k2 + 1u;
+  threefry_rounds<17, 29, 16, 24>(x0, x1);
+  x0 += k2; x1 += k0 + 2u;
+  threefry_rounds<13, 15, 26, 6>(x0, x1);
+  x0 += k0; x1 += k1 + 3u;
+  threefry_rounds<17, 29, 16, 24>(x0, x1);
+  x0 += k1; x1 += k2 + 4u;
+  threefry_rounds<13, 15, 26, 6>(x0, x1);
+  x0 += k2; x1 += k0 + 5u;
+  b1 = x0;
+  b2 = x1;
+}
+
+// jax.random.uniform's mantissa from threefry's two output words: f32
+// from b1 ^ b2, f64 from the 64 bits b1 << 32 | b2; OR-ed with 1.0,
+// minus 1 (exact).
+__device__ __forceinline__ void uniform_of(uint32_t b1, uint32_t b2, float& u) {
+  u = __fsub_rn(__uint_as_float(((b1 ^ b2) >> 9) | 0x3F800000u), 1.0f);
+}
+__device__ __forceinline__ void uniform_of(uint32_t b1, uint32_t b2, double& u) {
+  const unsigned long long m =
+      (static_cast<unsigned long long>(b1) << 20) | (b2 >> 12);
+  u = __dsub_rn(__longlong_as_double(
+                    static_cast<long long>(m | 0x3FF0000000000000ull)),
+                1.0);
 }
 
 // One step of the offset search per STEP = 2^(D-1) .. 1: load the entry
@@ -150,61 +293,146 @@ __device__ __forceinline__ int count_le(const int* tab, int z) {
   return static_cast<int>((addr - base) >> 2);
 }
 
+// The phase's tables in shared memory, written by the whole block before
+// its barrier: the padded search table and, per count, the chain and
+// the snap entries.
+template <typename T>
+__device__ __forceinline__ void fill_tables(const int* offs, const T* zeta,
+                                            const T* eta_z, int K, int* tab,
+                                            Chain<T>* chain, Snap<T>* snap) {
+  for (int j = threadIdx.x; j < kTable; j += blockDim.x) {
+    tab[j] = j < K ? offs[j] : 0x7FFFFFFF;
+  }
+  for (int c = threadIdx.x; c <= K; c += blockDim.x) {
+    const int i = c == 0 ? K - 1 : c - 1;        // offs[c - 1], wrapped
+    const int hi = offs[c < K - 1 ? c : K - 1];
+    Snap<T> e;
+    e.lo = offs[i];
+    e.hi = hi;
+    e.lo_f = to_float<T>(e.lo);
+    const T span = sub_rn(to_float<T>(hi), e.lo_f);
+    e.span = span < T(1) ? T(1) : span;
+    snap[c] = e;
+    chain[c] = Chain<T>{zeta[i], eta_z[i]};
+  }
+}
+
+// A step's two direction chains and flags, computed once per step: the
+// jump space, its bucket's Zipf constants, n = max(space, 1) and
+// max(avail, 1) as floats, and the coins' forcing masks (bit 31, Zipf,
+// while cooling; bit 30, backward, on the path's last step).
+template <typename T>
+struct StepChains {
+  int avail_b, avail_f;
+  int js_b, js_f;
+  Chain<T> chain_b, chain_f;
+  T n_b, n_f, av_b, av_f;
+  bool has_path, back_base, not_last;
+  uint32_t zipf_force, back_force;
+};
+
+template <typename T, int DEPTH>
+__device__ __forceinline__ StepChains<T> step_chains(int rank, int cnt,
+                                                     int space, int cooling,
+                                                     const int* tab,
+                                                     const Chain<T>* chain) {
+  StepChains<T> st;
+  st.avail_b = rank;
+  st.avail_f = cnt - 1 - rank;
+  st.js_b = st.avail_b < space ? st.avail_b : space;
+  st.js_f = st.avail_f < space ? st.avail_f : space;
+  const int js1_b = st.js_b > 1 ? st.js_b : 1;
+  const int js1_f = st.js_f > 1 ? st.js_f : 1;
+  st.chain_b = chain[count_le<DEPTH>(tab, js1_b)];
+  st.chain_f = chain[count_le<DEPTH>(tab, js1_f)];
+  st.n_b = to_float<T>(js1_b);
+  st.n_f = to_float<T>(js1_f);
+  st.av_b = to_float<T>(st.avail_b > 1 ? st.avail_b : 1);
+  st.av_f = to_float<T>(st.avail_f > 1 ? st.avail_f : 1);
+  pin(st.n_b);
+  pin(st.n_f);
+  pin(st.av_b);
+  pin(st.av_f);
+  pin(st.js_b);
+  pin(st.js_f);
+  st.has_path = cnt > 1;
+  st.back_base = rank > 0;
+  st.not_last = rank < cnt - 1;
+  st.zipf_force = cooling ? 0x80000000u : 0u;
+  st.back_force = rank == cnt - 1 ? 0x40000000u : 0u;
+  return st;
+}
+
+// One proposal's choice from its draws (bits, u): ki (jump +offs[ki]),
+// ~ki (jump -offs[ki]), and whether it is active.  The direction coin
+// picks a chain, the Zipf or the uniform draw is selected (both are
+// computed), the draw snaps to the offsets (stochastically by bits
+// 20-28, or down), then the activity coin (bits 0-19 below thresh) and
+// the end guards.
+template <typename T, int DEPTH>
+__device__ __forceinline__ bool propose(const StepChains<T>& st,
+                                        const int* tab, const Snap<T>* snap,
+                                        T zeta2theta, T alpha, bool stoch,
+                                        uint32_t thresh, uint32_t bits, T u,
+                                        int& choice) {
+  const bool use_zipf = static_cast<int>(bits | st.zipf_force) < 0;
+  const bool backward = st.back_base && ((bits | st.back_force) & 0x40000000u);
+  const bool forward = !backward && st.not_last;
+  const int avail = backward ? st.avail_b : st.avail_f;
+  const int jump_space = backward ? st.js_b : st.js_f;
+  const T zeta = backward ? st.chain_b.zeta : st.chain_f.zeta;
+  const T eta_z = backward ? st.chain_b.eta_z : st.chain_f.eta_z;
+  const T n = backward ? st.n_b : st.n_f;
+  // sweep_common.zipf_core: the inverse-CDF Zipf draw
+  const T uz = mul_rn(u, zeta);
+  T arg = add_rn(sub_rn(mul_rn(eta_z, u), eta_z), T(1));
+  arg = arg < T(1e-30) ? T(1e-30) : arg;   // a NaN passes, as in clamp_min
+  const T e = exp_lib(mul_rn(alpha, log_lib(arg)));
+  // NaN -> 0, then the clamps to [0, n]: fmax returns the operand that
+  // is not NaN, and general = 1 + n * e is never -0
+  const T general = fmin_(fmax_(add_rn(T(1), mul_rn(n, e)), T(0)), n);
+  int zz = uz < T(1) ? 1 : (uz < zeta2theta ? 2 : trunc_i(general));
+  zz = zz < jump_space ? zz : jump_space;
+  // the uniform draw
+  const int zu = 1 + trunc_i(mul_rn(u, backward ? st.av_b : st.av_f));
+  const int z = use_zipf ? zz : zu;
+
+  // the snap: c = searchsorted(offs, max(z, 1), right=True) = oidx + 1
+  // (z < INT_MAX: a draw never exceeds its jump space or avail + 1)
+  const int c = count_le<DEPTH>(tab, z > 1 ? z : 1);
+  const Snap<T> s = snap[c];
+  T u2;
+  u2_of(bits, u2);
+  const T qfrac = div_rn(sub_rn(to_float<T>(z), s.lo_f), s.span);
+  const bool promote = stoch && u2 < qfrac && s.hi <= avail;
+  const int oidx = c - 1 + (promote ? 1 : 0);
+  const int off_sel = promote ? s.hi : s.lo;
+  choice = backward ? ~oidx : oidx;
+  return (forward || backward) && st.has_path && off_sel <= avail &&
+         (bits & 0xFFFFFu) < thresh;
+}
+
+// A proposal's signed 8-bit field (INACTIVE8 where it is not active).
+__device__ __forceinline__ uint32_t field_of(bool active, int choice) {
+  return active ? static_cast<uint32_t>(choice) & 0xFFu : kInactive8;
+}
+
 template <int P, int DEPTH>
 __global__ void __launch_bounds__(kThreads)
 sweep_sampler_kernel(const SamplerParams prm) {
   __shared__ int s_tab[kTable];
-  __shared__ float2 s_chain[kMaxOffsets + 1];   // (zeta, eta_z) by count
-  __shared__ Snap s_snap[kMaxOffsets + 1];
-  const int K = prm.K;
-  for (int j = threadIdx.x; j < kTable; j += blockDim.x) {
-    s_tab[j] = j < K ? prm.offs[j] : 0x7FFFFFFF;
-  }
-  for (int c = threadIdx.x; c <= K; c += blockDim.x) {
-    const int i = c == 0 ? K - 1 : c - 1;        // offs[c - 1], wrapped
-    const int hi = prm.offs[c < K - 1 ? c : K - 1];
-    Snap e;
-    e.lo = prm.offs[i];
-    e.hi = hi;
-    e.lo_f = __int2float_rn(e.lo);
-    const float span = __fsub_rn(__int2float_rn(hi), e.lo_f);
-    e.span = span < 1.0f ? 1.0f : span;
-    s_snap[c] = e;
-    s_chain[c] = make_float2(prm.zeta[i], prm.eta_z[i]);
-  }
+  __shared__ Chain<float> s_chain[kMaxOffsets + 1];
+  __shared__ Snap<float> s_snap[kMaxOffsets + 1];
+  fill_tables(prm.offs, prm.zeta, prm.eta_z, prm.K, s_tab, s_chain, s_snap);
   const float zeta2theta = *prm.zeta2theta;
   const float alpha = *prm.alpha;
   __syncthreads();
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= prm.S) return;
 
-  const int rank = prm.rank[t];
-  const int cnt = prm.cnt[t];
-  // the two direction chains, once per step: the jump space, its
-  // bucket's Zipf constants, n = max(space, 1) and max(avail, 1) as floats
-  const int avail_b = rank;
-  const int avail_f = cnt - 1 - rank;
-  int js_b = avail_b < prm.space ? avail_b : prm.space;
-  int js_f = avail_f < prm.space ? avail_f : prm.space;
-  const int js1_b = js_b > 1 ? js_b : 1;
-  const int js1_f = js_f > 1 ? js_f : 1;
-  const float2 chain_b = s_chain[count_le<DEPTH>(s_tab, js1_b)];
-  const float2 chain_f = s_chain[count_le<DEPTH>(s_tab, js1_f)];
-  float n_b = __int2float_rn(js1_b);
-  float n_f = __int2float_rn(js1_f);
-  float av_b = __int2float_rn(avail_b > 1 ? avail_b : 1);
-  float av_f = __int2float_rn(avail_f > 1 ? avail_f : 1);
-  // kept in registers: the compiler would recompute them per proposal
-  asm volatile("" : "+f"(n_b), "+f"(n_f), "+f"(av_b), "+f"(av_f));
-  asm volatile("" : "+r"(js_b), "+r"(js_f));
-  const bool has_path = cnt > 1;
-  const bool back_base = rank > 0;
-  const bool not_last = rank < cnt - 1;
-  // the coins as bit masks: bit 31 (Zipf) is forced while cooling, bit
-  // 30 (backward) on the path's last step; every activity coin passes
-  // under a bound of 2^20
-  const uint32_t zipf_force = prm.cooling ? 0x80000000u : 0u;
-  const uint32_t back_force = rank == cnt - 1 ? 0x40000000u : 0u;
+  const StepChains<float> st = step_chains<float, DEPTH>(
+      prm.rank[t], prm.cnt[t], prm.space, prm.cooling, s_tab, s_chain);
+  // every activity coin passes under a bound of 2^20
   const uint32_t thresh =
       prm.thresh < 0 ? 0x100000u : static_cast<uint32_t>(prm.thresh);
   const bool stoch = prm.snap_down == 0;
@@ -225,56 +453,137 @@ sweep_sampler_kernel(const SamplerParams prm) {
     if (p == 0 && prm.coin != nullptr) {
       prm.coin[t] = static_cast<uint8_t>((bits >> 29) & 1u);
     }
-
-    const bool use_zipf = static_cast<int>(bits | zipf_force) < 0;
-    const bool backward = back_base && ((bits | back_force) & 0x40000000u);
-    const bool forward = !backward && not_last;
-    const int avail = backward ? avail_b : avail_f;
-    const int jump_space = backward ? js_b : js_f;
-    const float zeta = backward ? chain_b.x : chain_f.x;
-    const float eta_z = backward ? chain_b.y : chain_f.y;
-    const float n = backward ? n_b : n_f;
-    // sweep_common.zipf_core: the inverse-CDF Zipf draw
-    const float uz = __fmul_rn(u, zeta);
-    float arg = __fadd_rn(__fsub_rn(__fmul_rn(eta_z, u), eta_z), 1.0f);
-    arg = arg < 1e-30f ? 1e-30f : arg;   // a NaN passes, as in clamp_min
-    const float e = expf(__fmul_rn(alpha, logf(arg)));
-    // NaN -> 0, then the clamps to [0, n]: fmaxf returns the operand that
-    // is not NaN, and general = 1 + n * e is never -0
-    const float general =
-        fminf(fmaxf(__fadd_rn(1.0f, __fmul_rn(n, e)), 0.0f), n);
-    int zz = uz < 1.0f ? 1 : (uz < zeta2theta ? 2 : __float2int_rz(general));
-    zz = zz < jump_space ? zz : jump_space;
-    // the uniform draw
-    const int zu = 1 + __float2int_rz(__fmul_rn(u, backward ? av_b : av_f));
-    const int z = use_zipf ? zz : zu;
-
-    // the snap: c = searchsorted(offs, max(z, 1), right=True) = oidx + 1
-    // (z < INT_MAX: a draw never exceeds its jump space or avail + 1)
-    const int c = count_le<DEPTH>(s_tab, z > 1 ? z : 1);
-    const Snap s = s_snap[c];
-    // u2 = ((bits >> 20) & 0x1FF) * 2^-9, exactly: 1 + u2 - 1
-    const float u2 = __fsub_rn(
-        __uint_as_float(((bits >> 6) & (0x1FFu << 14)) | 0x3F800000u), 1.0f);
-    const float qfrac = __fdiv_rn(__fsub_rn(__int2float_rn(z), s.lo_f), s.span);
-    const bool promote = stoch && u2 < qfrac && s.hi <= avail;
-    const int oidx = c - 1 + (promote ? 1 : 0);
-    const int off_sel = promote ? s.hi : s.lo;
-    const bool active = (forward || backward) && has_path && off_sel <= avail &&
-                        (bits & 0xFFFFFu) < thresh;
-    const int choice = backward ? ~oidx : oidx;
+    int choice;
+    const bool active = propose<float, DEPTH>(st, s_tab, s_snap, zeta2theta,
+                                              alpha, stoch, thresh, bits, u,
+                                              choice);
     if (P == 1) {
       packed[0] = static_cast<uint32_t>(active ? choice : kInactive);
     } else {
-      const uint32_t field =
-          active ? static_cast<uint32_t>(choice) & 0xFFu : kInactive8;
-      packed[p >> 2] |= field << (8 * (p & 3));
+      packed[p >> 2] |= field_of(active, choice) << (8 * (p & 3));
     }
   }
 #pragma unroll
   for (int j = 0; j < kWords; ++j) {
     prm.words[j][t] = static_cast<int>(packed[j]);
   }
+}
+
+template <typename T, int DEPTH>
+__global__ void __launch_bounds__(kThreads)
+sweep_sampler_tf_kernel(const TfParams<T> prm) {
+  __shared__ int s_tab[kTable];
+  __shared__ Chain<T> s_chain[kMaxOffsets + 1];
+  __shared__ Snap<T> s_snap[kMaxOffsets + 1];
+  // the keys, for a runtime proposal index: a kernel parameter indexed
+  // at run time would be copied to local memory, so one thread copies
+  // them with constant indices
+  __shared__ uint32_t s_ks[kMaxProposals][6];
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int p = 0; p < kMaxProposals; ++p) {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) s_ks[p][k] = prm.ks[p][k];
+    }
+  }
+  fill_tables(prm.offs, prm.zeta, prm.eta_z, prm.K, s_tab, s_chain, s_snap);
+  const T zeta2theta = *prm.zeta2theta;
+  const T alpha = *prm.alpha;
+  __syncthreads();
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= prm.S) return;
+
+  const StepChains<T> st = step_chains<T, DEPTH>(
+      prm.rank[t], prm.cnt[t], prm.space, prm.cooling, s_tab, s_chain);
+  const uint32_t thresh =
+      prm.thresh < 0 ? 0x100000u : static_cast<uint32_t>(prm.thresh);
+  const bool stoch = prm.snap_down == 0;
+  const uint32_t ctr = static_cast<uint32_t>(t);
+
+  const int P = prm.proposals;
+  const int n_words = P == 1 ? 1 : (P + 3) >> 2;
+  for (int w = 0; w < n_words; ++w) {
+    uint32_t packed = 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = 4 * w + j;
+      if (p >= P) break;
+      // jax.random.bits(k1, (S,)) and uniform(k2, (S,)) at step t
+      uint32_t b1, b2;
+      threefry2x32(s_ks[p][0], s_ks[p][1], s_ks[p][2], ctr, b1, b2);
+      const uint32_t bits = b1 ^ b2;
+      threefry2x32(s_ks[p][3], s_ks[p][4], s_ks[p][5], ctr, b1, b2);
+      T u;
+      uniform_of(b1, b2, u);
+      if (p == 0 && prm.coin != nullptr) {
+        prm.coin[t] = static_cast<uint8_t>((bits >> 29) & 1u);
+      }
+      int choice;
+      const bool active = propose<T, DEPTH>(st, s_tab, s_snap, zeta2theta,
+                                            alpha, stoch, thresh, bits, u,
+                                            choice);
+      if (P == 1) {
+        packed = static_cast<uint32_t>(active ? choice : kInactive);
+      } else {
+        packed |= field_of(active, choice) << (8 * j);
+      }
+    }
+    // word w's array, selected among the parameters' constant indices
+    int* const dst = w == 0 ? prm.words[0]
+                   : w == 1 ? prm.words[1]
+                   : w == 2 ? prm.words[2] : prm.words[3];
+    dst[t] = static_cast<int>(packed);
+  }
+}
+
+template <typename T>
+cudaError_t launch_tf(const TfParams<T>& prm, int blocks, cudaStream_t st) {
+  if (prm.K < (1 << kShallow)) {
+    sweep_sampler_tf_kernel<T, kShallow><<<blocks, kThreads, 0, st>>>(prm);
+  } else {
+    sweep_sampler_tf_kernel<T, kDeep><<<blocks, kThreads, 0, st>>>(prm);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+int sampler_tf(int device, const int* rank, const int* cnt, int S,
+               const int* offs, const void* zeta, const void* eta_z,
+               const void* zeta2theta, const void* alpha, int K, int space,
+               int cooling, int thresh, int snap_down, int proposals,
+               const unsigned* keys, int* const (&words)[kMaxWords],
+               unsigned char* coin, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  TfParams<T> prm;
+  prm.rank = rank;
+  prm.cnt = cnt;
+  prm.offs = offs;
+  prm.zeta = static_cast<const T*>(zeta);
+  prm.eta_z = static_cast<const T*>(eta_z);
+  prm.zeta2theta = static_cast<const T*>(zeta2theta);
+  prm.alpha = static_cast<const T*>(alpha);
+  for (int j = 0; j < kMaxWords; ++j) prm.words[j] = words[j];
+  prm.coin = coin;
+  prm.S = S;
+  prm.K = K;
+  prm.space = space;
+  prm.cooling = cooling;
+  prm.thresh = thresh;
+  prm.snap_down = snap_down;
+  prm.proposals = proposals;
+  for (int p = 0; p < kMaxProposals; ++p) {
+    for (int k = 0; k < 2; ++k) {
+      const uint32_t k0 = p < proposals ? keys[4 * p + 2 * k] : 0u;
+      const uint32_t k1 = p < proposals ? keys[4 * p + 2 * k + 1] : 0u;
+      prm.ks[p][3 * k] = k0;
+      prm.ks[p][3 * k + 1] = k1;
+      prm.ks[p][3 * k + 2] = k0 ^ k1 ^ 0x1BD11BDAu;
+    }
+  }
+  const int blocks = (S + kThreads - 1) / kThreads;
+  return static_cast<int>(
+      launch_tf<T>(prm, blocks, static_cast<cudaStream_t>(stream)));
 }
 
 template <int P, int DEPTH>
@@ -362,4 +671,36 @@ extern "C" int gfasort_sweep_sampler(
       K < (1 << kShallow) ? launch<kShallow>(prm, proposals, blocks, st)
                           : launch<kDeep>(prm, proposals, blocks, st);
   return static_cast<int>(err);
+}
+
+
+// The threefry routes' entry: as gfasort_sweep_sampler, with the
+// constants zeta, eta_z, zeta2theta and alpha in float (f64 == 0) or
+// double (f64 == 1) and, in place of the hash words, `keys` (host,
+// proposals x 4 words): each proposal's k1 (two words) then k2 (two
+// words), a row of keys.threefry_key_table.
+extern "C" int gfasort_sweep_sampler_tf(
+    int device, const int* rank, const int* cnt, int S,
+    const int* offs, const void* zeta, const void* eta_z,
+    const void* zeta2theta, const void* alpha, int K, int space,
+    int cooling, int thresh, int snap_down, int proposals, int f64,
+    const unsigned* keys,
+    int* w0, int* w1, int* w2, int* w3, unsigned char* coin, void* stream) {
+  if (S <= 0 || K < 1 || K > kMaxOffsets || proposals < 1 ||
+      proposals > kMaxProposals || keys == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int* const words[kMaxWords] = {w0, w1, w2, w3};
+  const int n_words = proposals == 1 ? 1 : (proposals + 3) / 4;
+  for (int j = 0; j < n_words; ++j) {
+    if (words[j] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return f64 ? sampler_tf<double>(device, rank, cnt, S, offs, zeta, eta_z,
+                                  zeta2theta, alpha, K, space, cooling,
+                                  thresh, snap_down, proposals, keys, words,
+                                  coin, stream)
+             : sampler_tf<float>(device, rank, cnt, S, offs, zeta, eta_z,
+                                 zeta2theta, alpha, K, space, cooling, thresh,
+                                 snap_down, proposals, keys, words, coin,
+                                 stream);
 }

@@ -19,10 +19,12 @@ import re
 import shutil
 import subprocess
 import tempfile
+import time
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "nvcc_path", "build", "ptxas_report", "library",
+__all__ = ["NVCC_FLAGS", "nvcc_path", "build", "source_seconds",
+           "ptxas_report", "library",
            "bind_entry",
            "bucket_apply_cuda", "dense_apply_nd_cuda", "sweep_apply_cuda",
            "shift_sum_cuda", "sweep_sampler_cuda", "roll_apply_cuda",
@@ -68,22 +70,36 @@ def _tag() -> str:
 def build() -> tuple:
     """Compile the kernels if the library for the current sources is
     missing.  Returns (library path, compiler log; empty when the
-    library was already built)."""
+    library was already built).  The log ends with one line per source,
+    ``nvcc <source> <seconds> s``, the seconds from the start of the
+    build to that compiler's exit (:func:`source_seconds`)."""
     lib_path = _BUILD / f"libgfasort_torch_kernels_{_tag()}.so"
     if lib_path.exists():
         return lib_path, ""
     _BUILD.mkdir(exist_ok=True)
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=_BUILD) as tmpdir:
-        objs, procs = [], []
+        objs, procs, outs = [], [], []
+        t0 = time.perf_counter()
         for src in _sources():
             obj = os.path.join(tmpdir, src.stem + ".o")
             objs.append(obj)
+            outs.append(open(os.path.join(tmpdir, src.stem + ".log"), "w+"))
             procs.append(subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                stdout=outs[-1], stderr=subprocess.STDOUT, text=True))
         # wait for every compiler before judging any: none outlives build()
-        log = [proc.communicate()[0] for proc in procs]
+        seconds = {}
+        while len(seconds) < len(procs):
+            for src, proc in zip(_sources(), procs):
+                if src.name not in seconds and proc.poll() is not None:
+                    seconds[src.name] = time.perf_counter() - t0
+            time.sleep(0.02)
+        log = []
+        for out in outs:
+            out.seek(0)
+            log.append(out.read())
+            out.close()
         for src, proc, out in zip(_sources(), procs, log):
             if proc.returncode != 0:
                 raise RuntimeError(
@@ -101,7 +117,16 @@ def build() -> tuple:
     for old in _BUILD.glob("libgfasort_torch_kernels_*.so"):
         if old != lib_path:
             old.unlink(missing_ok=True)
-    return lib_path, "".join(log)
+    times = "".join(f"nvcc {name} {secs:.2f} s\n"
+                    for name, secs in seconds.items())
+    return lib_path, "".join(log) + times
+
+
+def source_seconds(log: str) -> dict:
+    """{source: seconds from the build's start to its compiler's exit}
+    from a :func:`build` log."""
+    return {m.group(1): float(m.group(2))
+            for m in re.finditer(r"^nvcc (\S+) ([0-9.]+) s$", log, re.M)}
 
 
 def ptxas_report(log: str) -> list:
@@ -136,6 +161,7 @@ def ptxas_report(log: str) -> list:
 
 
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_CD = ctypes.c_double
 _IP = ctypes.POINTER(_CI)
 _UP = ctypes.POINTER(ctypes.c_uint)
 # the C entry points of csrc/*.cu and their ctypes argument types
@@ -150,11 +176,19 @@ _ARGTYPES = {
     "gfasort_sweep_sampler": [_CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP, _VP,
                               _CI, _CI, _CI, _CI, _CI, _CI, _UP, _UP,
                               _VP, _VP, _VP, _VP, _VP, _VP],
+    "gfasort_sweep_sampler_tf": [_CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP, _VP,
+                                 _CI, _CI, _CI, _CI, _CI, _CI, _CI, _UP,
+                                 _VP, _VP, _VP, _VP, _VP, _VP],
     "gfasort_roll_apply": [_CI, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI,
                            _CF, _IP, _IP, _CI, _VP, _VP, _VP, _VP],
     "gfasort_roll_apply_nd": [_CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP, _VP,
                               _VP, _CI, _CI, _CI, _CF, _IP, _IP, _CI, _VP,
                               _VP, _VP, _VP],
+    "gfasort_roll_apply_f64": [_CI, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI,
+                               _CI, _CD, _IP, _IP, _CI, _VP, _VP, _VP, _VP],
+    "gfasort_roll_apply_nd_f64": [_CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP,
+                                  _VP, _VP, _CI, _CI, _CI, _CD, _IP, _IP, _CI,
+                                  _VP, _VP, _VP, _VP],
 }
 
 
@@ -267,13 +301,16 @@ def shift_sum_cuda(x, halo: int, variant: str):
 
 def sweep_sampler_cuda(consts, key_words, cooling: bool, rank, cnt,
                        active_frac: float, snap: str, coin: bool,
-                       entry=None):
+                       entry=None, threefry: bool = False):
     """Launch the per-sweep sampler kernel on the current stream: (the
     choice words, the end coin or None).  Inputs are validated by the
     caller (``ops/sweep_common.sample_words``); ``consts`` is the
-    phase's ``SamplerConsts`` on the same device; ``entry`` as in
-    :func:`bucket_apply_cuda`."""
-    entry = entry or library().gfasort_sweep_sampler
+    phase's ``SamplerConsts`` on the same device (f32, or f64 with
+    ``threefry``); ``key_words`` the sweep's u32 key rows: ``(b2, b1)``
+    words per proposal for the hash kernel, ``(k1, k2)`` keys per
+    proposal [P, 2, 2] for the threefry kernel (``threefry``).  ``entry``
+    as in :func:`bucket_apply_cuda`."""
+    lib = library() if entry is None else None
     S = rank.shape[0]
     P = len(key_words)
     n_words = 1 if P == 1 else -(-P // 4)
@@ -281,19 +318,27 @@ def sweep_sampler_cuda(consts, key_words, cooling: bool, rank, cnt,
              for _ in range(n_words)]
     end_coin = (torch.empty(S, dtype=torch.bool, device=rank.device)
                 if coin else None)
-    b2 = (ctypes.c_uint * P)(*[int(w[0]) for w in key_words])
-    b1 = (ctypes.c_uint * P)(*[int(w[1]) for w in key_words])
     # the activity coin as sample_blocks draws it; -1: every proposal on
     thresh = int(active_frac * (1 << 20)) if active_frac < 1.0 else -1
     stream = torch.cuda.current_stream(rank.device).cuda_stream
-    err = entry(
-        rank.device.index, rank.data_ptr(), cnt.data_ptr(), S,
-        consts.offs.data_ptr(), consts.zeta.data_ptr(),
-        consts.eta_z.data_ptr(), consts.zeta2theta.data_ptr(),
-        consts.alpha.data_ptr(), consts.offs.shape[0], int(consts.space),
-        int(bool(cooling)), thresh, int(snap == "down"), P, b2, b1,
-        *_word_ptrs(words),
-        end_coin.data_ptr() if end_coin is not None else None, stream)
+    common = (rank.device.index, rank.data_ptr(), cnt.data_ptr(), S,
+              consts.offs.data_ptr(), consts.zeta.data_ptr(),
+              consts.eta_z.data_ptr(), consts.zeta2theta.data_ptr(),
+              consts.alpha.data_ptr(), consts.offs.shape[0],
+              int(consts.space), int(bool(cooling)), thresh,
+              int(snap == "down"), P)
+    tail = (*_word_ptrs(words),
+            end_coin.data_ptr() if end_coin is not None else None, stream)
+    if threefry:
+        entry = entry or lib.gfasort_sweep_sampler_tf
+        keys = [int(w) for row in key_words for k in row for w in k]
+        err = entry(*common, int(consts.zeta.dtype == torch.float64),
+                    (ctypes.c_uint * len(keys))(*keys), *tail)
+    else:
+        entry = entry or lib.gfasort_sweep_sampler
+        b2 = (ctypes.c_uint * P)(*[int(w[0]) for w in key_words])
+        b1 = (ctypes.c_uint * P)(*[int(w[1]) for w in key_words])
+        err = entry(*common, b2, b1, *tail)
     if err != 0:
         raise RuntimeError(f"sweep_sampler kernel launch failed: CUDA error {err}")
     return words, end_coin
@@ -302,10 +347,13 @@ def sweep_sampler_cuda(consts, key_words, cooling: bool, rank, cnt,
 def roll_apply_cuda(xs, pos, words, eta: float, buckets, proposals: int,
                     dsum, csum, entry=None):
     """Launch the 1D roll-pass-and-combine kernel on the current stream:
-    the new xs.  Inputs are validated by the caller
-    (``ops/roll_apply.roll_apply``); ``dsum``/``csum`` may be None (+0);
-    ``entry`` as in :func:`bucket_apply_cuda`."""
-    entry = entry or library().gfasort_roll_apply
+    the new xs (f32, or f64 through the f64 entry point).  Inputs are
+    validated by the caller (``ops/roll_apply.roll_apply``);
+    ``dsum``/``csum`` may be None (+0); ``entry`` as in
+    :func:`bucket_apply_cuda`."""
+    f64 = xs.dtype == torch.float64
+    entry = entry or (library().gfasort_roll_apply_f64 if f64
+                      else library().gfasort_roll_apply)
     out = torch.empty_like(xs)
     ks, kis, nb = _bucket_arrays(buckets)
     stream = torch.cuda.current_stream(xs.device).cuda_stream
@@ -322,10 +370,13 @@ def roll_apply_cuda(xs, pos, words, eta: float, buckets, proposals: int,
 def roll_apply_nd_cuda(my_pos, my_c, lane0, cs, words, eta: float, buckets,
                        proposals: int, acc, wacc, entry=None):
     """Launch the nD roll-pass-and-combine kernel on the current stream:
-    the new cs [2D, S].  Inputs are validated by the caller
+    the new cs [2D, S] (f32, or f64 through the f64 entry point).
+    Inputs are validated by the caller
     (``ops/roll_apply.roll_apply_nd``); ``acc``/``wacc`` may be None
     (+0); ``entry`` as in :func:`bucket_apply_cuda`."""
-    entry = entry or library().gfasort_roll_apply_nd
+    f64 = my_pos.dtype == torch.float64
+    entry = entry or (library().gfasort_roll_apply_nd_f64 if f64
+                      else library().gfasort_roll_apply_nd)
     D, S = my_c.shape
     out = torch.empty_like(cs)
     ks, kis, nb = _bucket_arrays(buckets)

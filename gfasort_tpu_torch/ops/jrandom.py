@@ -7,8 +7,11 @@ with ``jax_threefry_partitionable`` on).  Keys stay small: they are
 derived on the host (``keys.fold_in``, ``keys.split``) and passed here
 either as a pair of Python ints or as an int64 tensor ``[..., 2]``
 already on the device, whose leading axes broadcast before the draw's
-shape.  Only the ``[..., *shape]`` counters and their outputs live on
-the device, so no draw copies anything from the host.
+shape.  A draw lands on its tensor key's device; under a pair of ints,
+on ``device``, which defaults to the card as every entry point of the
+port does (and raises where there is none).  Only the ``[..., *shape]``
+counters and their outputs live on the device, so no draw copies
+anything from the host.
 
 Unsigned 32-bit words live in int64 tensors masked to 32 bits, as in
 ``sweep_common``: torch's uint32 supports few ops, and a right shift of
@@ -21,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .keys import MANT_SHIFT, ONE_BITS
 from .keys import split as split_np
 
@@ -69,6 +73,8 @@ def _draw(key, shape, device):
         n *= d
     if isinstance(key, torch.Tensor):
         device = key.device
+    elif device is None:
+        device = resolve_device("cuda")
     i = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
     k0, k1 = _key_words(key, len(shape))
     return threefry2x32(k0, k1, i >> 32, i & _M32)

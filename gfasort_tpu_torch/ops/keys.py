@@ -27,8 +27,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["threefry2x32", "key_data", "fold_in", "sweep_key_table",
-           "split", "bits", "uniform", "randint", "bernoulli",
-           "MANT_SHIFT", "ONE_BITS"]
+           "threefry_key_table", "split", "bits", "uniform", "randint",
+           "bernoulli", "MANT_SHIFT", "ONE_BITS"]
 
 # uniform: the float's mantissa from the top bits of a draw of the
 # float's width, OR-ed with 1.0 (``jax.random.uniform``)
@@ -97,6 +97,14 @@ def sweep_key_table(base_key: np.ndarray, n_exec: int, proposals: int) -> np.nda
     if proposals == 1:
         return sweep_keys[:, None, :]
     return fold_in(sweep_keys[:, None, :], np.arange(proposals)[None, :])
+
+
+def threefry_key_table(table: np.ndarray) -> np.ndarray:
+    """The threefry route's key table: u32 ``[..., P, 2, 2]``, the keys
+    ``(k1, k2) = split(key, 2)`` that ``sweep_common.sweep_rng`` draws
+    ``bits`` and ``u`` from, for every key of ``table`` (a
+    :func:`sweep_key_table`) in one vectorised call per run."""
+    return split(table, 2)
 
 
 def _counter_words(shape):

@@ -5,12 +5,11 @@ Counterparts of the roll passes and the combine of
 ``gfasort_tpu/ops/sweep.py`` (1D, ``:328-380``) and
 ``gfasort_tpu/ops/sweep_nd.py`` (nD, ``:105-185``), which XLA fuses.  On
 a CUDA tensor :func:`roll_apply` and :func:`roll_apply_nd` launch the
-hand-written Hopper kernel ``csrc/roll_apply.cu`` (float32); on a CPU
-tensor they run :func:`roll_apply_ref` and :func:`roll_apply_nd_ref`,
-the plain PyTorch versions (one ``torch.roll`` pass per bucket and
-side, then the combine).  A CUDA tensor never reaches a plain version,
-and a failed launch raises.  The float64 route calls the plain versions
-itself: it has no kernel.
+hand-written Hopper kernel ``csrc/roll_apply.cu`` (float32, or float64
+on the f64 route); on a CPU tensor they run :func:`roll_apply_ref` and
+:func:`roll_apply_nd_ref`, the plain PyTorch versions (one
+``torch.roll`` pass per bucket and side, then the combine).  A CUDA
+tensor never reaches a plain version, and a failed launch raises.
 
 Semantics (as in the JAX package): step t's partner for the bucket
 (k, ki) is read at (t + k) mod S and (t - k) mod S; the wrap-around of
@@ -181,9 +180,9 @@ def roll_apply(xs, pos, words, eta: float, buckets, proposals: int,
                               csum)
     if xs.device.type != "cuda":
         raise ValueError(f"roll_apply runs on cpu or cuda, not {xs.device}")
-    if xs.dtype != torch.float32:
-        raise ValueError("the roll kernel is float32; the float64 route "
-                         "calls roll_apply_ref")
+    if xs.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the roll kernel is float32 or float64, not "
+                         f"{xs.dtype}")
     from ..kernels import roll_apply_cuda
 
     out = roll_apply_cuda(xs, pos, words, eta, buckets, proposals, dsum, csum)
@@ -223,9 +222,9 @@ def roll_apply_nd(my_pos, my_c, lane0, cs, words, eta: float, buckets,
     if my_pos.device.type != "cuda":
         raise ValueError(f"roll_apply_nd runs on cpu or cuda, not "
                          f"{my_pos.device}")
-    if my_pos.dtype != torch.float32:
-        raise ValueError("the roll kernel is float32; the float64 route "
-                         "calls roll_apply_nd_ref")
+    if my_pos.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the roll kernel is float32 or float64, not "
+                         f"{my_pos.dtype}")
     if D > MAX_DIMS:
         raise ValueError(f"the nD kernel is built for at most {MAX_DIMS} "
                          f"dimensions, got {D}")

@@ -15,9 +15,11 @@ ported.  Its dispatch chunking is not ported either, but it does change
 results: the JAX engine executes whole dispatches of consensus periods,
 so where the chunk does not divide the periods it runs more sweeps (at
 the terminal eta) and more consensus runs.  The plan reproduces that
-count (``SweepPlan.n_exec``).  At float64 every bucket runs as a
-plain roll pass, the plain sampler draws threefry bits and works in f64,
-and the consensus sums in f64, as in the JAX engine.
+count (``SweepPlan.n_exec``).  Under ``GFASORT_SWEEP_RNG=threefry``, and
+always at float64, the sampler kernel draws threefry bits from the run's
+``keys.threefry_key_table``; at float64 it works in f64, every bucket
+runs in the f64 roll kernel and the consensus sums in f64, as in the
+JAX engine.
 
 ``build_applied_counter`` replays the sampler of a schedule, with the
 engine's keys, and counts the pair updates the engine applies.
@@ -38,9 +40,9 @@ from ..params import PathSGDParams
 from . import runner_cache
 from .keys import key_data, sweep_key_table
 from .node_sum import JAX_ROW_RUN, build_gather_consensus
-from .roll_apply import roll_apply, roll_apply_ref
+from .roll_apply import roll_apply
 from .sweep_common import (INACTIVE, SamplerConsts, sample_blocks,
-                           sample_words, sample_words_ref, sampler_consts,
+                           route_keys, sample_words, sampler_consts,
                            sweep_rng)
 from .sweep_dense import bucket_apply
 from .sweep_plan import PhasePlan, make_sweep_plan, torch_dtype
@@ -54,21 +56,12 @@ def sweep_once(xs, pos, rank, cnt, phase: PhasePlan, consts: SamplerConsts,
                key_words, eta: float, cooling: bool, proposals: int,
                active_frac: float, snap: str = "stoch", rng: str = "hash"):
     """One sweep; returns the new xs.  ``consts``: the phase's sampler
-    constants for ``cooling``; ``key_words``: the sweep's ``(b2, b1)``
-    words per proposal (a row of ``sweep_key_table``); ``rng``: the
-    ``sweep_rng`` mode.
-
-    The hash route at f32 draws its words with ``sample_words`` (the
-    sampler kernel on the card).  The threefry draws and the f64 route
-    are other configurations, chosen by the plan's knobs and dtype: they
-    run the plain sampler (``sample_words_ref``), and f64 also the plain
-    roll passes, as no kernel serves f64."""
-    if rng == "hash" and xs.dtype == torch.float32:
-        words, _ = sample_words(consts, key_words, cooling, rank, cnt,
-                                active_frac, snap)
-    else:
-        words, _ = sample_words_ref(consts, key_words, cooling, rank, cnt,
-                                    active_frac, snap, rng)
+    constants for ``cooling``; ``key_words``: the sweep's row of the
+    run's :func:`route_keys`; ``rng``: the ``sweep_rng`` mode.  Every
+    route draws its words with ``sample_words`` (the sampler kernel on
+    the card)."""
+    words, _ = sample_words(consts, key_words, cooling, rank, cnt,
+                            active_frac, snap, rng)
     return apply_choices(xs, pos, words, phase, eta, proposals)
 
 
@@ -77,15 +70,14 @@ def apply_choices(xs, pos, words, phase: PhasePlan, eta: float,
     """The pair updates of one sweep for the given choice words (the raw
     int32 [S] choices for one proposal, else the packed words of
     ``sweep_common.pack_words``) and the combine; returns the new xs.
-    The bucket-apply kernel serves the phase's buckets with k <= KMAX,
-    the roll kernel the rest and the combine."""
+    The bucket-apply kernel serves the phase's buckets with k <= KMAX
+    (none at f64), the roll kernel the rest and the combine."""
     dsum = csum = None
     if phase.kernel_buckets:
         dsum, csum = bucket_apply(xs, pos, words, eta, phase.kernel_buckets,
                                   proposals)
-    roll = roll_apply if xs.dtype == torch.float32 else roll_apply_ref
-    return roll(xs, pos, words, eta, phase.roll_buckets, proposals, dsum,
-                csum)
+    return roll_apply(xs, pos, words, eta, phase.roll_buckets, proposals,
+                      dsum, csum)
 
 
 def build_sweep_runner(
@@ -131,7 +123,7 @@ def build_sweep_runner(
     P = plan.proposals
 
     def run(xs, x_node_init, base_key, pos, rank, cnt):
-        keys = sweep_key_table(base_key, plan.n_exec, P)
+        keys = route_keys(base_key, plan.n_exec, P, plan.knobs.rng, tdt)
         xn = None
         for e in range(plan.n_exec):
             i, eta, cooling = plan.sweep(e)

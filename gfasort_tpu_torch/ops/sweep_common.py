@@ -9,9 +9,10 @@ single-proposal calls; its Zipf maths runs in the run's dtype, f32 or
 f64) and the 8-bit choice packing.  The JAX code is XLA, not a Pallas
 kernel: XLA fuses the few hundred u32/f32 ops per proposal.  The port's
 counterpart of that fusion is :func:`sample_words`, which launches the
-hand-written kernel ``csrc/sweep_sampler.cu`` on a CUDA tensor (hash
-draws, f32) and runs :func:`sample_words_ref`, the composition of the
-plain functions here, on a CPU tensor.
+hand-written kernel ``csrc/sweep_sampler.cu`` on a CUDA tensor (every
+route: hash or threefry draws, f32 or f64) and runs
+:func:`sample_words_ref`, the composition of the plain functions here,
+on a CPU tensor.
 
 Unsigned 32-bit arithmetic runs in int64 masked to 32 bits: torch's
 uint32 supports few ops, and a right shift of an int32 is arithmetic.
@@ -27,10 +28,11 @@ import torch
 import numpy as np
 
 from . import jrandom
-from .keys import split
+from .keys import split, sweep_key_table, threefry_key_table
 from .sweep_plan import PhasePlan
 
 __all__ = ["INACTIVE", "INACTIVE8", "PACKED_INACTIVE", "sweep_rng",
+           "threefry_route", "threefry_draws", "route_keys",
            "SamplerConsts", "sampler_consts", "snap_idx_track", "zipf_core",
            "sample_blocks", "sample_words", "sample_words_ref",
            "pack_choices", "pack_choices_words", "pack_words",
@@ -67,6 +69,29 @@ def _mix(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def threefry_route(mode: str, dtype) -> bool:
+    """Whether a sweep draws threefry bits: under ``mode`` "threefry",
+    and always in f64 (the JAX ``sweep_rng``)."""
+    return mode == "threefry" or dtype == torch.float64
+
+
+def threefry_draws(keys, S: int, device, dtype=torch.float32):
+    """The threefry draws from one proposal's ``(k1, k2)`` (u32 [2, 2], a
+    row of ``keys.threefry_key_table``): ``bits(k1, (S,))`` and
+    ``uniform(k2, (S,), dtype)``, as ``jax.random`` draws them."""
+    k1, k2 = np.asarray(keys, dtype=np.uint32)
+    return (jrandom.bits(k1, (S,), device),
+            jrandom.uniform(k2, (S,), dtype, device))
+
+
+def route_keys(base_key, n_exec: int, proposals: int, mode: str, dtype):
+    """A run's key table for its draws: ``keys.sweep_key_table``, or its
+    ``keys.threefry_key_table`` where the run draws threefry bits
+    (:func:`threefry_route`)."""
+    table = sweep_key_table(base_key, n_exec, proposals)
+    return threefry_key_table(table) if threefry_route(mode, dtype) else table
+
+
 def sweep_rng(words, S: int, device, mode: str = "hash",
               dtype=torch.float32):
     """Per-sweep randomness from a key's ``(b2, b1)`` words: (bits int64
@@ -75,10 +100,9 @@ def sweep_rng(words, S: int, device, mode: str = "hash",
     ``threefry`` (always taken in f64) splits the key in two and draws
     ``bits(k1, (S,))`` and ``uniform(k2, (S,), dtype)`` as
     ``jax.random`` does."""
-    if mode == "threefry" or dtype == torch.float64:
-        k1, k2 = split(np.asarray(words, dtype=np.uint32), 2)
-        return (jrandom.bits(k1, (S,), device),
-                jrandom.uniform(k2, (S,), dtype, device))
+    if threefry_route(mode, dtype):
+        return threefry_draws(split(np.asarray(words, dtype=np.uint32), 2),
+                              S, device, dtype)
     if mode != "hash":
         raise ValueError(f"unknown sweep RNG mode {mode!r}")
     b2, b1 = (int(w) for w in words)
@@ -251,19 +275,40 @@ def pack_words(sidxs) -> list:
     return list(sidxs[:1]) if len(sidxs) == 1 else pack_choices_words(sidxs)
 
 
+def _key_rows(key_words, threefry: bool) -> np.ndarray:
+    """A sweep's key rows as u32: ``[P, 2]`` ``(b2, b1)`` words for hash
+    draws, ``[P, 2, 2]`` ``(k1, k2)`` keys for threefry draws."""
+    rows = np.asarray(key_words, dtype=np.uint32)
+    want = (2, 2) if threefry else (2,)
+    if rows.ndim != 1 + len(want) or rows.shape[1:] != want:
+        kind = ("a threefry_key_table row [P, 2, 2]" if threefry
+                else "a sweep_key_table row [P, 2]")
+        raise ValueError(f"the draws take {kind}, got {list(rows.shape)}")
+    return rows
+
+
 def sample_words_ref(consts: SamplerConsts, key_words, cooling: bool,
                      rank: torch.Tensor, cnt: torch.Tensor,
                      active_frac: float, snap: str = "stoch",
                      rng: str = "hash", coin: bool = False):
-    """Plain PyTorch version of :func:`sample_words`: ``sweep_rng`` ->
+    """Plain PyTorch version of :func:`sample_words`: the draws
+    (``sweep_rng``'s, or :func:`threefry_draws` from the keys) ->
     :func:`sample_blocks` -> :func:`pack_words`, in the dtype of
-    ``consts`` (the threefry draws under ``rng="threefry"`` and at
-    f64).  Returns (words, proposal 0's end coin as bool [S] or None)."""
+    ``consts``.  Returns (words, proposal 0's end coin as bool [S] or
+    None)."""
     S = rank.shape[0]
     dtype = consts.zeta.dtype
-    first = sweep_rng(key_words[0], S, rank.device, rng, dtype)
+    threefry = threefry_route(rng, dtype)
+    rows = _key_rows(key_words, threefry)
+
+    def draws(row):
+        if threefry:
+            return threefry_draws(row, S, rank.device, dtype)
+        return sweep_rng(row, S, rank.device, rng, dtype)
+
+    first = draws(rows[0])
     end_coin = ((first[0] >> 29) & 1) == 1 if coin else None
-    rest = (sweep_rng(w, S, rank.device, rng, dtype) for w in key_words[1:])
+    rest = (draws(row) for row in rows[1:])
     sidxs = sample_blocks(consts, itertools.chain([first], rest), cooling,
                           rank, cnt, active_frac, snap)
     return pack_words(sidxs), end_coin
@@ -271,20 +316,23 @@ def sample_words_ref(consts: SamplerConsts, key_words, cooling: bool,
 
 def sample_words(consts: SamplerConsts, key_words, cooling: bool,
                  rank: torch.Tensor, cnt: torch.Tensor, active_frac: float,
-                 snap: str = "stoch", coin: bool = False):
-    """One sweep's choice words from its hash draws: P = len(key_words)
-    proposals, each from its ``(b2, b1)`` words (a row of
-    ``keys.sweep_key_table``), in f32.  Returns (words, end coin):
-    ceil(P/4) packed int32 [S] words (the raw int32 choices for P = 1),
-    and with ``coin`` proposal 0's ``(bits >> 29) & 1`` as bool [S] (the
-    nD engine's end coin), else None.
+                 snap: str = "stoch", rng: str = "hash", coin: bool = False):
+    """One sweep's choice words: P = len(key_words) proposals in the
+    dtype of ``consts`` (f32 or f64).  ``rng`` is the ``sweep_rng`` mode;
+    the route draws threefry bits under "threefry" and always in f64
+    (:func:`threefry_route`), and ``key_words`` is then a row of
+    ``keys.threefry_key_table`` (``(k1, k2)`` per proposal), else a row
+    of ``keys.sweep_key_table`` (``(b2, b1)`` per proposal).  Returns
+    (words, end coin): ceil(P/4) packed int32 [S] words (the raw int32
+    choices for P = 1), and with ``coin`` proposal 0's ``(bits >> 29) &
+    1`` as bool [S] (the nD engine's end coin), else None.
 
     CUDA tensors launch ``csrc/sweep_sampler.cu`` and count one launch in
-    ``sample_words.launches``; CPU tensors run :func:`sample_words_ref`.
-    The threefry and f64 routes draw other bits and are not served
-    here: they call :func:`sample_words_ref` themselves."""
+    ``sample_words.launches``; CPU tensors run :func:`sample_words_ref`."""
     if snap not in ("stoch", "down"):
         raise ValueError(f"unknown snap mode {snap!r}")
+    if rng not in ("hash", "threefry"):
+        raise ValueError(f"unknown sweep RNG mode {rng!r}")
     P = len(key_words)
     if not 1 <= P <= 16:
         raise ValueError(f"1 to 16 proposals, got {P}")
@@ -295,12 +343,17 @@ def sample_words(consts: SamplerConsts, key_words, cooling: bool,
                              f"{list(t.shape)}")
         if t.device != rank.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {rank.device}")
-    if consts.zeta.dtype != torch.float32:
-        raise ValueError("sample_words draws hash bits in float32; the "
-                         "float64 route calls sample_words_ref")
+    dtype = consts.zeta.dtype
+    if dtype not in (torch.float32, torch.float64) or any(
+            t.dtype != dtype for t in (consts.eta_z, consts.zeta2theta,
+                                       consts.alpha)):
+        raise ValueError("the sampler constants must all be float32 or all "
+                         "float64")
+    threefry = threefry_route(rng, dtype)
+    rows = _key_rows(key_words, threefry)
     if rank.device.type == "cpu":
-        return sample_words_ref(consts, key_words, cooling, rank, cnt,
-                                active_frac, snap, "hash", coin)
+        return sample_words_ref(consts, rows, cooling, rank, cnt,
+                                active_frac, snap, rng, coin)
     if rank.device.type != "cuda":
         raise ValueError(f"sample_words runs on cpu or cuda, not {rank.device}")
     if S >= 1 << 31:
@@ -312,8 +365,8 @@ def sample_words(consts: SamplerConsts, key_words, cooling: bool,
                          f"the steps on {rank.device}")
     from ..kernels import sweep_sampler_cuda
 
-    out = sweep_sampler_cuda(consts, key_words, cooling, rank, cnt,
-                             active_frac, snap, coin)
+    out = sweep_sampler_cuda(consts, rows, cooling, rank, cnt, active_frac,
+                             snap, coin, threefry=threefry)
     sample_words.launches += 1
     return out
 

@@ -14,8 +14,9 @@ dimension) row.  The schedule runs eagerly from Python, as in the 1D
 engine, executing the sweeps the JAX engine's dispatch chunking
 executes (``SweepPlan.n_exec``); ``build_sweep_nd_runner`` memoizes its
 runners through :mod:`.runner_cache` (key ``"sweepnd"``), as the JAX
-engine does.  At float64 every bucket runs as a plain roll pass and the
-plain sampler draws threefry bits, as in the JAX engine.
+engine does.  As in the 1D engine, the sampler kernel draws threefry
+bits under ``GFASORT_SWEEP_RNG=threefry`` and at float64, where every
+bucket runs in the f64 roll kernel, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -32,10 +33,10 @@ from ..index import PathIndex
 from ..io.layout_tsv import Layout
 from ..params import LayoutSGDParams
 from . import runner_cache
-from .keys import key_data, sweep_key_table
+from .keys import key_data
 from .node_sum import build_gather_consensus
-from .roll_apply import roll_apply_nd, roll_apply_nd_ref
-from .sweep_common import (SamplerConsts, sample_words, sample_words_ref,
+from .roll_apply import roll_apply_nd
+from .sweep_common import (SamplerConsts, route_keys, sample_words,
                            sampler_consts)
 from .sweep_dense import dense_apply_nd
 from .sweep_plan import PhasePlan, make_layout_plan, torch_dtype
@@ -61,26 +62,19 @@ def nd_sweep_once(cs, pos, rank, cnt, rev, length, phase: PhasePlan,
                   rng: str = "hash"):
     """One nD sweep; returns the new ``cs [2D, S]``.  ``consts``: the
     phase's sampler constants for ``cooling``; ``key_words``: the
-    sweep's ``(b2, b1)`` words per proposal (a row of
-    ``sweep_key_table``); ``snap``/``rng``: the sampler's snap and the
-    ``sweep_rng`` mode.  As in the 1D ``sweep_once``, the hash route at
-    f32 runs the sampler kernel and the threefry / f64 routes the plain
-    sampler; f64 also the plain roll passes."""
-    if rng == "hash" and cs.dtype == torch.float32:
-        words, other_end = sample_words(consts, key_words, cooling, rank, cnt,
-                                        active_frac, snap, coin=True)
-    else:
-        words, other_end = sample_words_ref(consts, key_words, cooling, rank,
-                                            cnt, active_frac, snap, rng,
-                                            coin=True)
+    sweep's row of the run's ``sweep_common.route_keys``; ``snap``/``rng``: the
+    sampler's snap and the ``sweep_rng`` mode.  As in the 1D
+    ``sweep_once``, every route runs the sampler kernel and the roll
+    kernel."""
+    words, other_end = sample_words(consts, key_words, cooling, rank, cnt,
+                                    active_frac, snap, rng, coin=True)
     my_pos, lane0, my_c = chosen_ends(cs, pos, length, rev, other_end)
     acc = wacc = None
     if phase.kernel_buckets:
         acc, wacc = dense_apply_nd(my_pos, words, my_c, eta,
                                    phase.kernel_buckets, proposals)
-    roll = roll_apply_nd if cs.dtype == torch.float32 else roll_apply_nd_ref
-    return roll(my_pos, my_c, lane0, cs, words, eta, phase.roll_buckets,
-                proposals, acc, wacc)
+    return roll_apply_nd(my_pos, my_c, lane0, cs, words, eta,
+                         phase.roll_buckets, proposals, acc, wacc)
 
 
 def build_sweep_nd_runner(
@@ -122,13 +116,14 @@ def build_sweep_nd_runner(
                                 dtype=npd)
     arrays = layout_static_arrays(pidx, dev, npd)
     # [phase][cooling]
-    consts = [[sampler_consts(ph, c, dev, torch_dtype(plan.dtype))
-               for c in (False, True)] for ph in plan.phases]
+    tdt = torch_dtype(plan.dtype)
+    consts = [[sampler_consts(ph, c, dev, tdt) for c in (False, True)]
+              for ph in plan.phases]
     ce = plan.consensus_every
     P = plan.proposals
 
     def run(cs, cs_node_init, base_key, pos, rank, cnt, rev, length):
-        keys = sweep_key_table(base_key, plan.n_exec, P)
+        keys = route_keys(base_key, plan.n_exec, P, plan.knobs.rng, tdt)
         xn = None
         for e in range(plan.n_exec):
             i, eta, cooling = plan.sweep(e)

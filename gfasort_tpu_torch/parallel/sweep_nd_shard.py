@@ -95,7 +95,7 @@ def build_sharded_sweep_nd(
     P = plan.proposals
 
     def run(cs, cs_node_init, base_key, pos, rank, cnt, rev, length):
-        keys = _shard_keys(mesh, base_key, plan.n_exec, P)
+        keys = _shard_keys(mesh, base_key, plan.n_exec, plan)
         xn = None
         for e in range(plan.n_exec):
             i, eta, cooling = plan.sweep(e)

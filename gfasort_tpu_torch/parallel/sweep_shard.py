@@ -28,10 +28,10 @@ import torch
 
 from ..graph import BidirectedGraph
 from ..index import PathIndex
-from ..ops.keys import fold_in, key_data, sweep_key_table
+from ..ops.keys import fold_in, key_data
 from ..ops.node_sum import build_gather_consensus
 from ..ops.sweep import sweep_once
-from ..ops.sweep_common import sampler_consts
+from ..ops.sweep_common import route_keys, sampler_consts
 from ..ops.sweep_plan import make_sharded_sweep_plan, torch_dtype
 from ..ops.sweep_policy import LARGE_S
 from ..params import PathSGDParams
@@ -104,11 +104,12 @@ def _device_consts(mesh, plan):
             for dev in dict.fromkeys(mesh.devices)}
 
 
-def _shard_keys(mesh, base_key, n: int, proposals: int):
-    """Per local shard ``g``, the key table of ``n`` sweeps under
-    ``fold_in(base_key, g)``."""
+def _shard_keys(mesh, base_key, n: int, plan):
+    """Per local shard ``g``, the key table of ``n`` sweeps of ``plan``'s
+    draws (``sweep_common.route_keys``) under ``fold_in(base_key, g)``."""
     base = np.asarray(base_key, np.uint32)
-    return [sweep_key_table(fold_in(base, g), n, proposals)
+    return [route_keys(fold_in(base, g), n, plan.proposals, plan.knobs.rng,
+                       torch_dtype(plan.dtype))
             for g in mesh.shards]
 
 
@@ -217,7 +218,7 @@ def build_sharded_sweep(
                 for x, k, p, r, c in zip(xs, keys, pos, rank, cnt)]
 
     def run(xs, x_node_init, base_key, pos, rank, cnt):
-        keys = _shard_keys(mesh, base_key, plan.n_exec, P)
+        keys = _shard_keys(mesh, base_key, plan.n_exec, plan)
         xn = None
         for e in range(plan.n_exec):
             xs = sweep_all(xs, keys, e, pos, rank, cnt)
@@ -246,7 +247,7 @@ def build_sharded_sweep(
 
         def _mk(with_consensus):
             def period(xs, base_key, pos, rank, cnt):
-                keys = _shard_keys(mesh, base_key, n_period, P)
+                keys = _shard_keys(mesh, base_key, n_period, plan)
                 for e in range(n_period):
                     xs = sweep_all(xs, keys, e, pos, rank, cnt)
                 if with_consensus:

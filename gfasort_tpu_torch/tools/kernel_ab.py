@@ -16,10 +16,14 @@ S = 4M steps of the bench index, the bench plans' phases 0 and 1; P = 12
 and 1 in 1D; D = 2 with P = 8, D = 3 with P = 4 and D = 2 with P = 1 in
 nD; the fused apply over the full offset sets at the first and the last
 sweep's eta; the sampler's cases of ``bench_util.sampler_cases`` (every
-one checked, each plan's and edge's main case timed); the roll kernels'
-of ``bench_util.roll_cases`` (1D at P = 12, 2D at P = 8 and 3D at P = 4
-on plan phases 0 and 1 and on phase 0 all rolled; the P = 5 edge with
-far buckets at ki = 0 in 1D, 2D and 3D; 3D phase 1 at P = 8).  In every
+one checked, each plan's and edge's main case timed; the hash kernel's
+and, where a build holds ``gfasort_sweep_sampler_tf``, the threefry
+kernel's at f32 and f64); the roll kernels' of ``bench_util.roll_cases``
+(1D at P = 12, 2D at P = 8 and 3D at P = 4 on plan phases 0 and 1 and
+on phase 0 all rolled; the P = 5 edge with far buckets at ki = 0 in 1D,
+2D and 3D; 3D phase 1 at P = 8; and, where a build holds the f64 entry
+points, the f64 cases).  A kind whose C entry point a build lacks is not
+run for that build.  In every
 case every build must equal the plain version bit for bit; each is then
 timed in turns (the old builds in order, the current one twice, the old
 ones in reverse) with CUDA events.  Prints each build's seconds, its
@@ -44,11 +48,11 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..bench_util import (BENCH_SHAPE, bench_layout_coords, contract_choices,
-                          cuda_ms, fused_cases, roll_cases, sampler_cases,
-                          synthetic_path_index)
+from ..bench_util import (BENCH_SHAPE, SAMPLER_ROUTES, bench_layout_coords,
+                          contract_choices, cuda_ms, fused_cases, roll_cases,
+                          sampler_cases, synthetic_path_index)
 from ..ops.roll_apply import roll_apply_nd_ref, roll_apply_ref
-from ..ops.sweep_common import sample_words_ref
+from ..ops.sweep_common import sample_words_ref, threefry_route
 from ..ops.sweep_dense import bucket_apply_ref, dense_apply_nd_ref
 from ..ops.sweep_fused import sweep_apply_ref
 from ..ops.sweep_plan import make_layout_plan, make_sweep_plan
@@ -66,17 +70,24 @@ SOURCES = {"1d": ("bucket_apply.cu", "gfasort_bucket_apply",
                      "sweep_apply_kernel"),
            "sampler": ("sweep_sampler.cu", "gfasort_sweep_sampler",
                        "sweep_sampler_kernel"),
+           "sampler_tf": ("sweep_sampler.cu", "gfasort_sweep_sampler_tf",
+                          "sweep_sampler_tf_kernel"),
            "roll": ("roll_apply.cu", "gfasort_roll_apply",
                     "roll_apply_kernel"),
            "roll_nd": ("roll_apply.cu", "gfasort_roll_apply_nd",
-                       "roll_apply_nd_kernel")}
+                       "roll_apply_nd_kernel"),
+           "roll_f64": ("roll_apply.cu", "gfasort_roll_apply_f64",
+                        "roll_apply_kernel"),
+           "roll_nd_f64": ("roll_apply.cu", "gfasort_roll_apply_nd_f64",
+                           "roll_apply_nd_kernel")}
 
 
 def build_old(src_dir: pathlib.Path, suffix: str):
     """Build the sources ``src_dir`` holds into one library with their
     entry points renamed by ``suffix`` (one nvcc per source, all started
-    together, as ``kernels.build`` does).  Returns ({kind: entry point},
-    the ptxas report, the library's path, the build's seconds)."""
+    together, as ``kernels.build`` does).  Returns ({kind: entry point}
+    for the kinds whose entry point the build holds, the ptxas report,
+    the library's path, the build's seconds)."""
     kinds = [kind for kind, (src, _, _) in SOURCES.items()
              if (src_dir / src).exists()]
     if not kinds:
@@ -106,7 +117,7 @@ def build_old(src_dir: pathlib.Path, suffix: str):
     seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(lib_path))
     return ({kind: kernels.bind_entry(lib, SOURCES[kind][1], suffix)
-             for kind in kinds},
+             for kind in kinds if hasattr(lib, SOURCES[kind][1] + suffix)},
             kernels.ptxas_report("".join(logs)), lib_path, seconds)
 
 
@@ -241,33 +252,42 @@ def cases(dev, kinds):
                    "fused", (*flat, c["eta"], c["offs"], c["layout"]["H"]),
                    True)
     plans = {"1d": plan, **nd_plans}
-    if "sampler" in kinds:
-        for c in sampler_cases(bench, plans, dev):
+    routes = [r for r in SAMPLER_ROUTES
+              if ("sampler" if r[1:] == ("hash", "float32") else "sampler_tf")
+              in kinds]
+    if routes:
+        for c in sampler_cases(bench, plans, dev, routes):
             yield (dict(kernel="sweep_sampler", S=S,
-                        **{k: c[k] for k in ("name", "phase_of_plan", "P",
-                                             "K", "coin", "cooling", "frac",
-                                             "snap")}),
-                   "sampler", (*c["args"], c["coin"]), c["main"])
-    if "roll" in kinds or "roll_nd" in kinds:
-        for c in roll_cases(bench, plans, dev):
-            kind = "roll" if c["dims"] == 1 else "roll_nd"
+                        **{k: c[k] for k in ("name", "route", "phase_of_plan",
+                                             "P", "K", "coin", "cooling",
+                                             "frac", "snap")}),
+                   "sampler" if c["route"] == "hash" else "sampler_tf",
+                   (*c["args"], c["coin"]), c["main"])
+    if kinds & {"roll", "roll_nd", "roll_f64", "roll_nd_f64"}:
+        for c in roll_cases(bench, plans, dev,
+                            f64=bool(kinds & {"roll_f64", "roll_nd_f64"})):
+            kind = (("roll" if c["dims"] == 1 else "roll_nd")
+                    + ("_f64" if c["dtype"] == "float64" else ""))
             if kind in kinds:
                 yield (dict(kernel=c["kernel"], dims=c["dims"], S=S,
+                            dtype=c["dtype"],
                             phase_of_plan=c["phase_of_plan"], P=c["P"],
                             kernel_buckets=len(c["kb"]),
                             roll_buckets=[list(b) for b in c["rb"]]),
                        kind, c["args"], True)
 
 
-def _sampler_cuda(consts, key_words, cooling, rank, cnt, frac, snap, coin,
-                  entry=None):
-    return kernels.sweep_sampler_cuda(consts, key_words, cooling, rank, cnt,
-                                      frac, snap, coin, entry=entry)
+def _sampler_cuda(consts, key_words, cooling, rank, cnt, frac, snap, rng,
+                  coin, entry=None):
+    return kernels.sweep_sampler_cuda(
+        consts, key_words, cooling, rank, cnt, frac, snap, coin, entry=entry,
+        threefry=threefry_route(rng, consts.zeta.dtype))
 
 
-def _sampler_ref(consts, key_words, cooling, rank, cnt, frac, snap, coin):
+def _sampler_ref(consts, key_words, cooling, rank, cnt, frac, snap, rng,
+                 coin):
     return sample_words_ref(consts, key_words, cooling, rank, cnt, frac, snap,
-                            coin=coin)
+                            rng, coin=coin)
 
 
 def _flat(out) -> list:
@@ -309,6 +329,7 @@ def main(argv=None) -> int:
                           "ptxas": report}), flush=True)
     kinds = {kind for entries in olds.values() for kind in entries}
     print(json.dumps({"new_build": "csrc", "seconds": new_s,
+                      "source_seconds": kernels.source_seconds(log),
                       "ptxas": kernels.ptxas_report(log)}), flush=True)
     for label, lib_path in [("new", new_lib), *old_libs.items()]:
         print(json.dumps({"sass_mix": label, "static_counts": True,
@@ -317,8 +338,11 @@ def main(argv=None) -> int:
               "nd": (kernels.dense_apply_nd_cuda, dense_apply_nd_ref),
               "fused": (kernels.sweep_apply_cuda, sweep_apply_ref),
               "sampler": (_sampler_cuda, _sampler_ref),
+              "sampler_tf": (_sampler_cuda, _sampler_ref),
               "roll": (kernels.roll_apply_cuda, roll_apply_ref),
-              "roll_nd": (kernels.roll_apply_nd_cuda, roll_apply_nd_ref)}
+              "roll_nd": (kernels.roll_apply_nd_cuda, roll_apply_nd_ref),
+              "roll_f64": (kernels.roll_apply_cuda, roll_apply_ref),
+              "roll_nd_f64": (kernels.roll_apply_nd_cuda, roll_apply_nd_ref)}
     for desc, kind, args, timed in cases(dev, kinds):
         run, ref = launch[kind]
         builds = {label: entries[kind] for label, entries in olds.items()

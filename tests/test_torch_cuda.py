@@ -19,7 +19,8 @@ torch = pytest.importorskip("torch")
 from gfasort_tpu_torch.bench_util import (rank_quality,  # noqa: E402
                                           synthetic_path_index)
 from gfasort_tpu_torch.ops import sweep_common as sc  # noqa: E402
-from gfasort_tpu_torch.ops.keys import fold_in, key_data  # noqa: E402
+from gfasort_tpu_torch.ops.keys import (fold_in, key_data,  # noqa: E402
+                                        threefry_key_table)
 from gfasort_tpu_torch.ops.node_sum import build_gather_consensus  # noqa: E402
 from gfasort_tpu_torch.ops.sweep import path_linear_sgd_sweep  # noqa: E402
 from gfasort_tpu_torch.ops.sweep_dense import (bucket_apply,  # noqa: E402
@@ -411,10 +412,14 @@ def test_jrandom_draws_on_cuda_equal_cpu(cuda):
 @pytest.mark.parametrize("mode", ["f64", "threefry_f32"])
 def test_sweep_f64_and_threefry_on_cuda_certify_against_cpu(cuda, mode,
                                                             monkeypatch):
-    """The f64 route (roll passes only, no kernel launch) and the
-    threefry draws at f32 (the bucket kernel): identical run to run on
-    the card; against the CPU run the order certifies (the sampler's
-    exp/log differ between the devices in the last place)."""
+    """The f64 route (the threefry sampler kernel in f64 and the f64
+    roll kernel, no bucket kernel) and the threefry draws at f32 (the
+    threefry sampler kernel, the bucket and roll kernels): one sampler
+    and one roll launch per executed sweep, identical run to run on the
+    card; against the CPU run the order certifies (the sampler's exp/log
+    differ between the devices in the last place)."""
+    from gfasort_tpu_torch.ops.roll_apply import roll_apply
+
     pidx = synthetic_path_index(3000, 2, 6000, seed=3)
     dtype = "float64" if mode == "f64" else "float32"
     if mode == "threefry_f32":
@@ -426,8 +431,11 @@ def test_sweep_f64_and_threefry_on_cuda_certify_against_cpu(cuda, mode,
     plan = make_sweep_plan(pidx, p, **kw)
     assert plan.knobs.rng == ("threefry" if mode == "threefry_f32" else "hash")
     before = bucket_apply.launches
+    samp, roll = sc.sample_words.launches, roll_apply.launches
     x_gpu = path_linear_sgd_sweep(None, p, pidx, device=cuda, **kw)
     launched = bucket_apply.launches - before
+    assert sc.sample_words.launches - samp == plan.n_exec
+    assert roll_apply.launches - roll == plan.n_exec
     if mode == "f64":
         assert launched == 0
         assert not any(ph.kernel_buckets for ph in plan.phases)
@@ -730,6 +738,43 @@ def test_sweep_sampler_kernel_matches_plain_version(cuda, sampler_workload, P,
 
 @pytest.mark.parametrize("snap", ["stoch", "down"])
 @pytest.mark.parametrize("cooling", [False, True])
+@pytest.mark.parametrize("P", [12, 8, 5, 4, 1])
+@pytest.mark.parametrize("route", ["threefry_f32", "f64"])
+def test_sweep_sampler_threefry_kernel_matches_plain_version(
+        cuda, sampler_workload, route, P, cooling, snap):
+    """The threefry sampler kernel (f32 threefry draws, and the f64
+    route) against the plain version on the card, for plan phases 0 and
+    1 and a 64-offset table (the deep search), active fraction 0.6 at
+    P = 8 and 1: the words and the end coin bit for bit."""
+    from gfasort_tpu_torch.bench_util import edge_phase, wide_offsets
+
+    pidx, p = sampler_workload
+    dtype, rng = ((torch.float32, "threefry") if route == "threefry_f32"
+                  else (torch.float64, "hash"))
+    frac = 0.6 if P in (8, 1) else 1.0
+    plan = make_sweep_plan(pidx, p, per_octave=2, dense_upto=4, rotate=4,
+                           proposals=P, active_frac=1.0)
+    rank = torch.from_numpy(pidx.step_rank.astype(np.int32)).to(cuda)
+    cnt = torch.from_numpy(pidx.step_count_of_step.astype(np.int32)).to(cuda)
+    rows = threefry_key_table(fold_in(key_data(7), np.arange(P)))
+    for phase in [*plan.phases[:2], edge_phase(pidx, p, wide_offsets(pidx, p))]:
+        consts = sc.sampler_consts(phase, cooling, cuda, dtype)
+        before = sc.sample_words.launches
+        words, coin = sc.sample_words(consts, rows, cooling, rank, cnt, frac,
+                                      snap, rng, coin=True)
+        ref, ref_coin = sc.sample_words_ref(consts, rows, cooling, rank, cnt,
+                                            frac, snap, rng, coin=True)
+        torch.cuda.synchronize()
+        assert sc.sample_words.launches == before + 1
+        assert len(words) == len(ref) == (1 if P == 1 else -(-P // 4))
+        for w, r in zip(words, ref):
+            assert w.device.type == "cuda" and w.dtype == torch.int32
+            assert torch.equal(w, r)
+        assert torch.equal(coin, ref_coin)
+
+
+@pytest.mark.parametrize("snap", ["stoch", "down"])
+@pytest.mark.parametrize("cooling", [False, True])
 @pytest.mark.parametrize("case", ["k64", "past_last", "p5"])
 def test_sweep_sampler_kernel_edges(cuda, sampler_workload, case, cooling,
                                     snap):
@@ -838,3 +883,41 @@ def test_roll_apply_kernel_matches_plain_version(cuda, case):
         torch.cuda.synchronize()
         assert roll_apply_nd.launches == before + 1
         assert out.shape == cs.shape and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("case", sorted(ROLL_CASES))
+def test_roll_apply_f64_kernel_matches_plain_version(cuda, case):
+    """The f64 roll kernels (1D, 2D and 3D) against their plain versions
+    on the card, every bucket of the case a roll bucket (as at f64):
+    bit for bit."""
+    from gfasort_tpu_torch.ops.roll_apply import (roll_apply, roll_apply_nd,
+                                                  roll_apply_nd_ref,
+                                                  roll_apply_ref)
+
+    S, kb, rb, P = ROLL_CASES[case]
+    rb = list(kb) + list(rb)
+    rng = np.random.default_rng(S + P + 1)
+    eta = 0.37
+    xs, pos, words = _roll_case(rng, S, rb, P)
+    xs, pos = xs.double().to(cuda), pos.double().to(cuda)
+    words = [w.to(cuda) for w in words]
+    before = roll_apply.launches
+    out = roll_apply(xs, pos, words, eta, rb, P)
+    ref = roll_apply_ref(xs, pos, words, eta, rb, P)
+    torch.cuda.synchronize()
+    assert roll_apply.launches == before + 1
+    assert out.dtype == torch.float64 and torch.equal(out, ref)
+    for D in (2, 3):
+        cs, pos, words = _roll_case(rng, S, rb, P, D)
+        cs, pos = cs.double().to(cuda), pos.double().to(cuda)
+        words = [w.to(cuda) for w in words]
+        lane0 = torch.from_numpy(rng.integers(0, 2, S).astype(bool)).to(cuda)
+        my_pos = torch.where(lane0, pos, pos + 3.0)
+        my_c = torch.where(lane0, cs[:D], cs[D:])
+        args = (my_pos, my_c, lane0, cs, words, eta, rb, P)
+        before = roll_apply_nd.launches
+        out = roll_apply_nd(*args)
+        ref = roll_apply_nd_ref(*args)
+        torch.cuda.synchronize()
+        assert roll_apply_nd.launches == before + 1
+        assert out.dtype == torch.float64 and torch.equal(out, ref)

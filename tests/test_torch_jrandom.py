@@ -151,3 +151,24 @@ def test_bad_arguments_raise():
         jrandom.bits(kd, (3,), "cpu", 16)
     with pytest.raises(ValueError):
         jrandom.uniform(kd, (3,), torch.float16, "cpu")
+
+
+@pytest.mark.parametrize("draw", ["split", "bits", "uniform", "randint",
+                                  "bernoulli"])
+def test_int_keys_default_to_the_card(monkeypatch, draw):
+    """Under a pair-of-ints key and no ``device``, every draw asks for
+    the card, as the JAX draws land on the default device and every
+    other entry point of the port defaults to the card: with no CUDA
+    present it raises, and nothing is drawn on the CPU in its place.  A
+    tensor key keeps its own device."""
+    kd = K.key_data(3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {"split": lambda k: jrandom.split(k, 2),
+            "bits": lambda k: jrandom.bits(k, (4,)),
+            "uniform": lambda k: jrandom.uniform(k, (4,)),
+            "randint": lambda k: jrandom.randint(k, (4,), 0, 9),
+            "bernoulli": lambda k: jrandom.bernoulli(k, 0.5, (4,))}[draw]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call(kd)
+    out = call(torch.from_numpy(kd.astype(np.int64)))
+    assert out.device.type == "cpu"

@@ -10,7 +10,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from gfasort_tpu_torch.convert import key_words_from_jax  # noqa: E402
 from gfasort_tpu_torch.ops.keys import (fold_in, key_data,  # noqa: E402
-                                        sweep_key_table, threefry2x32)
+                                        split, sweep_key_table,
+                                        threefry2x32, threefry_key_table)
 
 SEEDS = [0, 42, 9399220, 2**31 - 1]
 
@@ -63,3 +64,22 @@ def test_threefry_broadcasts_and_rejects_bad_input():
         key_data(-1)
     with pytest.raises(ValueError):
         fold_in(key_data(0), [-1])
+
+
+@pytest.mark.parametrize("P", [12, 1])
+def test_threefry_key_table_is_the_per_sweep_split(P):
+    """The threefry route's key table splits every key of the run's
+    ``sweep_key_table`` in one call: row (e, p) is ``(k1, k2)`` of
+    ``jax.random.split(key, 2)``, the per-sweep split that
+    ``sweep_common.sweep_rng`` makes proposal by proposal."""
+    n_exec = 9
+    table = sweep_key_table(key_data(42), n_exec, P)
+    tf = threefry_key_table(table)
+    assert tf.shape == (n_exec, P, 2, 2) and tf.dtype == np.uint32
+    for e in range(n_exec):
+        for p in range(P):
+            np.testing.assert_array_equal(tf[e, p], split(table[e, p], 2))
+    for e, p in ((0, 0), (8, P - 1)):
+        key = jax.random.wrap_key_data(jnp.asarray(table[e, p]))
+        want = np.asarray(jax.random.key_data(jax.random.split(key, 2)))
+        np.testing.assert_array_equal(tf[e, p], want)

@@ -16,7 +16,11 @@ every pair in full, sums per bucket ``acc + u1 + u2`` from the bucket
 kernel's sums (or +0), and combines.  The plain versions are held to the
 unjitted JAX sweeps by tests/test_torch_sweep.py and
 tests/test_torch_sweep_nd.py.  The kernel itself runs only on the card
-(tests/test_torch_cuda.py)."""
+(tests/test_torch_cuda.py).
+
+The same models run in double for the f64 route, where every bucket of
+a phase is a roll bucket: the ops in the same order, the constants and
+eta in f64, and the nD 1 / sqrt correctly rounded in f64."""
 
 from dataclasses import replace
 
@@ -28,7 +32,8 @@ torch = pytest.importorskip("torch")
 from gfasort_tpu_torch import kernels  # noqa: E402
 from gfasort_tpu_torch.bench_util import synthetic_path_index  # noqa: E402
 from gfasort_tpu_torch.ops import sweep_common as tsc  # noqa: E402
-from gfasort_tpu_torch.ops.keys import fold_in, key_data  # noqa: E402
+from gfasort_tpu_torch.ops.keys import (fold_in, key_data,  # noqa: E402
+                                        threefry_key_table)
 from gfasort_tpu_torch.ops.roll_apply import (roll_apply,  # noqa: E402
                                               roll_apply_nd,
                                               roll_apply_nd_ref,
@@ -67,13 +72,13 @@ def _eq_fields(w, b4, live):
     return ~(((v & U32(0x7F7F7F7F)) + U32(0x7F7F7F7F)) | v) & live
 
 
-def _weight_words(words, P, j, mine, theirs, guard):
+def _weight_words(words, P, j, mine, theirs, guard, fdt=F32):
     """The kernels' count, a packed word at a time (the raw choices
     for P = 1): ``mine`` / ``theirs`` are the signed choices compared
-    with my own and the partner's."""
+    with my own and the partner's; the count as a float of ``fdt``."""
     if P == 1:
         w = words[0]
-        return ((w == mine) | (guard & (w[j] == theirs))).astype(F32)
+        return ((w == mine) | (guard & (w[j] == theirs))).astype(fdt)
     nw = len(words)
     used = P - 4 * (nw - 1)
     last_live = U32(0x80808080) >> U32(8 * (4 - used))
@@ -86,15 +91,16 @@ def _weight_words(words, P, j, mine, theirs, guard):
         live = last_live if i == nw - 1 else U32(0x80808080)
         m |= (_eq_fields(w, b_mine, live)
               | (_eq_fields(w[j], b_theirs, live) & g)) >> U32(i)
-    return np.bitwise_count(m).astype(F32)
+    return np.bitwise_count(m).astype(fdt)
 
 
 def _base(pa, pb, weight):
+    fdt = pa.dtype.type
     d = np.abs(pa - pb)
     valid = d != 0
-    w = np.where(valid, weight, F32(0.0))
-    safe = np.where(valid, d, F32(1.0))
-    mu = np.minimum(F32(ETA) / safe, F32(1.0))
+    w = np.where(valid, weight, fdt(0.0))
+    safe = np.where(valid, d, fdt(1.0))
+    mu = np.minimum(fdt(ETA) / safe, fdt(1.0))
     return w, safe, mu
 
 
@@ -113,54 +119,58 @@ def _sides(S, k):
 
 
 def model_roll_1d(xs, pos, words, buckets, P, dsum=None, csum=None):
+    """In the dtype of ``xs`` (f32, or f64 on the f64 route)."""
+    fdt = xs.dtype.type
     S = len(xs)
-    dsum = np.zeros(S, F32) if dsum is None else dsum.copy()
-    csum = np.zeros(S, F32) if csum is None else csum.copy()
+    dsum = np.zeros(S, fdt) if dsum is None else dsum.copy()
+    csum = np.zeros(S, fdt) if csum is None else csum.copy()
     for k, ki in buckets:
         sides = _sides(S, k)
         upd = []
         for j, guard, sgn in sides:
             mine, theirs = (ki, ~ki) if sgn > 0 else (~ki, ki)
-            w, safe, mu = _base(pos, pos[j],
-                                _weight_words(words, P, j, mine, theirs, guard))
+            w, safe, mu = _base(pos, pos[j], _weight_words(
+                words, P, j, mine, theirs, guard, fdt))
             dx = xs - xs[j]
-            dx = np.where(dx == 0, F32(1e-9), dx)
-            r = (mu * (np.abs(dx) - safe)) * np.where(dx >= 0, F32(0.5),
-                                                      F32(-0.5))
+            dx = np.where(dx == 0, fdt(1e-9), dx)
+            r = (mu * (np.abs(dx) - safe)) * np.where(dx >= 0, fdt(0.5),
+                                                      fdt(-0.5))
             upd.append(((-w) * r, w))
         dsum = (dsum + upd[0][0]) + upd[1][0]
         csum = (csum + upd[0][1]) + upd[1][1]
-    return xs + dsum / np.maximum(csum, F32(1.0))
+    return xs + dsum / np.maximum(csum, fdt(1.0))
 
 
 def model_roll_nd(my_pos, my_c, lane0, cs, words, buckets, P, acc=None,
                   wacc=None):
+    """In the dtype of ``my_pos`` (f32, or f64 on the f64 route)."""
+    fdt = my_pos.dtype.type
     D, S = my_c.shape
-    acc = np.zeros((D, S), F32) if acc is None else acc.copy()
-    wacc = np.zeros(S, F32) if wacc is None else wacc.copy()
+    acc = np.zeros((D, S), fdt) if acc is None else acc.copy()
+    wacc = np.zeros(S, fdt) if wacc is None else wacc.copy()
     for k, ki in buckets:
         sides = _sides(S, k)
         upd = []
         for j, guard, sgn in sides:
             mine, theirs = (ki, ~ki) if sgn > 0 else (~ki, ki)
-            w, safe, mu = _base(my_pos, my_pos[j],
-                                _weight_words(words, P, j, mine, theirs, guard))
+            w, safe, mu = _base(my_pos, my_pos[j], _weight_words(
+                words, P, j, mine, theirs, guard, fdt))
             delta = my_c - my_c[:, j]
             mag2 = delta[0] * delta[0]
             for d in range(1, D):
                 mag2 = mag2 + delta[d] * delta[d]
             zero = mag2 == 0
-            delta[0] = np.where(zero, F32(1e-9), delta[0])
-            mag2 = np.where(zero, F32(1e-18), mag2)
-            inv = F32(1.0) / np.sqrt(mag2)
-            r = ((mu * (mag2 * inv - safe)) * F32(0.5)) * inv
-            r = np.where(r > F32(1e30), F32(1e30), r)
+            delta[0] = np.where(zero, fdt(1e-9), delta[0])
+            mag2 = np.where(zero, fdt(1e-18), mag2)
+            inv = fdt(1.0) / np.sqrt(mag2)
+            r = ((mu * (mag2 * inv - safe)) * fdt(0.5)) * inv
+            r = np.where(r > fdt(1e30), fdt(1e30), r)
             upd.append((-(w * r) * delta, w))
         acc = (acc + upd[0][0]) + upd[1][0]
         wacc = (wacc + upd[0][1]) + upd[1][1]
-    u = acc / np.maximum(wacc, F32(1.0))
-    return np.concatenate([cs[:D] + np.where(lane0, u, F32(0.0)),
-                           cs[D:] + np.where(lane0, F32(0.0), u)])
+    u = acc / np.maximum(wacc, fdt(1.0))
+    return np.concatenate([cs[:D] + np.where(lane0, u, fdt(0.0)),
+                           cs[D:] + np.where(lane0, fdt(0.0), u)])
 
 
 @pytest.fixture(scope="module")
@@ -445,7 +455,7 @@ def test_sample_words_dispatch(workload, monkeypatch, tmp_path):
         tsc.sample_words(consts, key_words, False, rank.long(), cnt, 1.0)
     with pytest.raises(ValueError):
         tsc.sample_words(consts, key_words, False, rank, cnt, 1.0, snap="up")
-    with pytest.raises(ValueError):   # the f64 route calls the plain version
+    with pytest.raises(ValueError):   # the f64 route takes threefry keys
         c64 = tsc.sampler_consts(phase, False, "cpu", torch.float64)
         tsc.sample_words(c64, key_words, False, rank, cnt, 1.0)
     # on a CUDA tensor the kernel is built or the call raises: a failed
@@ -455,4 +465,194 @@ def test_sample_words_dispatch(workload, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         tsc.sample_words(fake, key_words, False, rank.as_subclass(_FakeCuda),
                          cnt.as_subclass(_FakeCuda), 1.0)
+    assert tsc.sample_words.launches == before
+
+
+# ---- the f64 route: every bucket a roll bucket ----------------------------
+
+F64 = np.float64
+# P = 5 with far buckets at ki = 0: the last word's three unused fields,
+# partners read mod S
+CASES_1D_F64 = [(P, words) for P in (12, 5, 1)
+                for words in ("sampler", "random")]
+CASES_ND_F64 = [(D, P, words)
+                for D, P in ((2, 8), (3, 4), (2, 1), (3, 8), (2, 5), (3, 5))
+                for words in ("sampler", "random")]
+
+
+def _f64_phases(pidx, p, P):
+    """Plan phases 0 and 1 of the f64 plan: every bucket a roll bucket."""
+    plan = make_sweep_plan(pidx, replace(p, dtype="float64"), per_octave=2,
+                           dense_upto=4, rotate=4, proposals=P,
+                           active_frac=1.0)
+    for phase in plan.phases[:2]:
+        assert not phase.kernel_buckets and phase.roll_buckets
+        yield phase
+
+
+def _f64_words(pidx, phase, P, seed):
+    """The f64 sampler's words (threefry draws) and end coin."""
+    consts = tsc.sampler_consts(phase, False, "cpu", torch.float64)
+    words, coin = tsc.sample_words(
+        consts, threefry_key_table(fold_in(key_data(seed), np.arange(P))),
+        False, torch.from_numpy(pidx.step_rank.astype(np.int32)),
+        torch.from_numpy(pidx.step_count_of_step.astype(np.int32)), 1.0,
+        coin=True)
+    return [w.numpy() for w in words], coin.numpy()
+
+
+def _edge_buckets(rb, S, P):
+    return rb + ((S // 2 + 123, 0), (S + 7, 0), (2 * S + 3, 0)) if P == 5 else rb
+
+
+@pytest.mark.parametrize("P,words", CASES_1D_F64)
+def test_model_equals_roll_apply_ref_1d_f64(workload, P, words):
+    pidx, p = workload
+    rng = np.random.default_rng(50 + P)
+    S = pidx.total_steps
+    for phase in _f64_phases(pidx, p, P):
+        rb = _edge_buckets(phase.roll_buckets, S, P)
+        xs = rng.standard_normal(S) * 100
+        if words == "random":   # dx == 0 and d == 0 guards
+            xs[rng.integers(0, S, S // 8)] = 5.0
+            pos = np.cumsum(rng.integers(0, 3, S)).astype(F64)
+            w = _random_words(rng, S, rb, P)
+        else:
+            pos = pidx.step_pos.astype(F64)
+            w = _f64_words(pidx, phase, P, 5)[0]
+        w_t = [torch.from_numpy(x) for x in w]
+        want = roll_apply(torch.from_numpy(xs), torch.from_numpy(pos), w_t,
+                          ETA, rb, P)
+        assert want.dtype == torch.float64
+        got = model_roll_1d(xs, pos, w, rb, P)
+        np.testing.assert_array_equal(got.view(np.int64),
+                                      want.numpy().view(np.int64))
+
+
+@pytest.mark.parametrize("D,P,words", CASES_ND_F64)
+def test_model_equals_roll_apply_nd_ref_f64(workload, D, P, words):
+    pidx, p = workload
+    rng = np.random.default_rng(60 + 10 * D + P)
+    S = pidx.total_steps
+    for phase in _f64_phases(pidx, p, P):
+        rb = _edge_buckets(phase.roll_buckets, S, P)
+        cs = rng.standard_normal((2 * D, S)) * 50
+        if words == "random":   # coincident ends: mag^2 == 0
+            cs[:, rng.integers(0, S, S // 8)] = 2.0
+            pos = np.cumsum(rng.integers(0, 3, S)).astype(F64)
+            w = _random_words(rng, S, rb, P)
+            lane0 = rng.integers(0, 2, S).astype(bool)
+        else:
+            pos = pidx.step_pos.astype(F64)
+            w, coin = _f64_words(pidx, phase, P, 9)
+            lane0 = coin ^ (rng.integers(0, 2, S) == 1)
+        my_pos = pos + np.where(lane0, 0.0, 3.0)
+        my_c = np.ascontiguousarray(np.where(lane0, cs[:D], cs[D:]))
+        w_t = [torch.from_numpy(x) for x in w]
+        want = roll_apply_nd(*(torch.from_numpy(a) for a in
+                               (my_pos, my_c, lane0, cs)), w_t, ETA, rb, P)
+        assert want.shape == (2 * D, S) and want.dtype == torch.float64
+        got = model_roll_nd(my_pos, my_c, lane0, cs, w, rb, P)
+        np.testing.assert_array_equal(got.view(np.int64),
+                                      want.numpy().view(np.int64))
+
+
+def test_roll_apply_dispatch_f64(monkeypatch, tmp_path):
+    S, P = 500, 5
+    rng = np.random.default_rng(14)
+    xs = torch.from_numpy(rng.standard_normal(S))
+    pos = torch.arange(S, dtype=torch.float64)
+    words = [torch.from_numpy(w) for w in
+             _random_words(rng, S, [(3, 0), (40, 1)], P)]
+    before = roll_apply.launches
+    out = roll_apply(xs, pos, words, ETA, [(3, 0), (40, 1)], P)
+    assert roll_apply.launches == before and out.dtype == torch.float64
+    assert torch.equal(out, roll_apply_ref(xs, pos, words, ETA,
+                                           [(3, 0), (40, 1)], P))
+    meta = torch.empty(S, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError):   # no silent fallback off cpu/cuda
+        roll_apply(meta, meta, [torch.empty(S, dtype=torch.int32,
+                                            device="meta")] * 2, ETA,
+                   [(40, 1)], P)
+    _failing_build(monkeypatch, tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        roll_apply(xs.as_subclass(_FakeCuda), pos.as_subclass(_FakeCuda),
+                   [w.as_subclass(_FakeCuda) for w in words], ETA, [(40, 1)],
+                   P)
+    assert roll_apply.launches == before
+
+
+def test_roll_apply_nd_dispatch_f64(monkeypatch, tmp_path):
+    S, P, D = 500, 8, 3
+    rng = np.random.default_rng(15)
+    my_pos = torch.arange(S, dtype=torch.float64)
+    cs = torch.from_numpy(rng.standard_normal((2 * D, S)))
+    lane0 = torch.from_numpy(rng.integers(0, 2, S).astype(bool))
+    my_c = torch.where(lane0, cs[:D], cs[D:]).contiguous()
+    words = [torch.from_numpy(w) for w in
+             _random_words(rng, S, [(3, 0), (40, 1)], P)]
+    args = (my_pos, my_c, lane0, cs, words, ETA, [(3, 0), (40, 1)], P)
+    before = roll_apply_nd.launches
+    out = roll_apply_nd(*args)
+    assert roll_apply_nd.launches == before and out.dtype == torch.float64
+    assert torch.equal(out, roll_apply_nd_ref(*args))
+    with pytest.raises(ValueError):   # one dtype throughout
+        roll_apply_nd(my_pos, my_c.float(), *args[2:])
+    with pytest.raises(ValueError):   # no silent fallback off cpu/cuda
+        roll_apply_nd(torch.empty(S, dtype=torch.float64, device="meta"),
+                      torch.empty(D, S, dtype=torch.float64, device="meta"),
+                      torch.empty(S, dtype=torch.bool, device="meta"),
+                      torch.empty(2 * D, S, dtype=torch.float64,
+                                  device="meta"),
+                      [torch.empty(S, dtype=torch.int32, device="meta")] * 2,
+                      ETA, [(40, 1)], P)
+    _failing_build(monkeypatch, tmp_path)
+    fake = [a.as_subclass(_FakeCuda) for a in (my_pos, my_c, lane0, cs)]
+    with pytest.raises(RuntimeError, match="nvcc"):
+        roll_apply_nd(*fake, [w.as_subclass(_FakeCuda) for w in words], ETA,
+                      [(40, 1)], P)
+    assert roll_apply_nd.launches == before
+
+
+@pytest.mark.parametrize("route", ["threefry_f32", "f64"])
+def test_sample_words_dispatch_threefry(workload, monkeypatch, tmp_path,
+                                        route):
+    """The threefry routes through the dispatcher: a CPU tensor runs the
+    plain version (from the ``threefry_key_table`` rows), a hash key row
+    or a ``meta`` tensor raises, and a CUDA tensor reaches the kernel's
+    build, which raises with no ``nvcc``."""
+    pidx, p = workload
+    phase = make_sweep_plan(pidx, p, per_octave=2, dense_upto=4, rotate=4,
+                            proposals=8, active_frac=1.0).phases[0]
+    dtype, rng = ((torch.float32, "threefry") if route == "threefry_f32"
+                  else (torch.float64, "hash"))
+    consts = tsc.sampler_consts(phase, True, "cpu", dtype)
+    hash_rows = fold_in(key_data(7), np.arange(8))
+    rows = threefry_key_table(hash_rows)
+    rank = torch.from_numpy(pidx.step_rank.astype(np.int32))
+    cnt = torch.from_numpy(pidx.step_count_of_step.astype(np.int32))
+    before = tsc.sample_words.launches
+    words, coin = tsc.sample_words(consts, rows, True, rank, cnt, 0.6,
+                                   "down", rng, coin=True)
+    assert tsc.sample_words.launches == before
+    ref, ref_coin = tsc.sample_words_ref(consts, rows, True, rank, cnt, 0.6,
+                                         "down", rng, coin=True)
+    assert all(torch.equal(a, b) for a, b in zip(words, ref))
+    assert torch.equal(coin, ref_coin)
+    # the plain route's per-sweep split gives the same draws
+    draws = [tsc.sweep_rng(w, len(rank), "cpu", rng, dtype) for w in hash_rows]
+    sidxs = tsc.sample_blocks(consts, draws, True, rank, cnt, 0.6, "down")
+    assert all(torch.equal(a, b) for a, b in zip(words, tsc.pack_words(sidxs)))
+    with pytest.raises(ValueError):   # threefry draws take (k1, k2) rows
+        tsc.sample_words(consts, hash_rows, True, rank, cnt, 0.6, "down", rng)
+    with pytest.raises(ValueError):
+        tsc.sample_words(consts, rows, True, rank, cnt, 0.6, "down", "philox")
+    with pytest.raises(ValueError):   # no silent fallback off cpu/cuda
+        meta = torch.empty(len(rank), dtype=torch.int32, device="meta")
+        tsc.sample_words(consts, rows, True, meta, meta, 0.6, "down", rng)
+    _failing_build(monkeypatch, tmp_path)
+    fake = replace(consts, offs=consts.offs.as_subclass(_FakeCuda))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tsc.sample_words(fake, rows, True, rank.as_subclass(_FakeCuda),
+                         cnt.as_subclass(_FakeCuda), 0.6, "down", rng)
     assert tsc.sample_words.launches == before

@@ -16,7 +16,16 @@ INT_MAX to 128 entries, then per count c = oidx + 1 the snapped offset,
 the next one, the first as f32 and the span), the stochastic promotion
 or none, the activity coin, and the packing (P = 1: the raw choices).
 It also gives proposal 0's end coin.  The kernel itself runs only on
-the card (tests/test_torch_cuda.py)."""
+the card (tests/test_torch_cuda.py).
+
+The threefry routes (``GFASORT_SWEEP_RNG=threefry`` at f32, and every
+f64 run) are modelled the same way with the threefry kernel's draws:
+per step, in u32 words, threefry2x32 of the counter (0, t) under each
+proposal's (k1, k2) from ``keys.threefry_key_table``, ``bits`` and the
+f32 or f64 ``u`` built from the words, then the same sampler in the
+draws' dtype; the draws are held to ``jax.random`` under
+``jax.random.split`` bit for bit, and the words to the JAX package's
+sampler fed with its threefry draws."""
 
 from dataclasses import replace
 
@@ -33,7 +42,8 @@ from gfasort_tpu.ops import sweep_common as jsc  # noqa: E402
 from gfasort_tpu.ops.fastpow import zeta_table  # noqa: E402
 from gfasort_tpu.params import PathSGDParams  # noqa: E402
 from gfasort_tpu_torch.ops import sweep_common as tsc  # noqa: E402
-from gfasort_tpu_torch.ops.keys import fold_in, key_data  # noqa: E402
+from gfasort_tpu_torch.ops.keys import (fold_in, key_data,  # noqa: E402
+                                        sweep_key_table, threefry_key_table)
 from gfasort_tpu_torch.ops.sweep_plan import (make_layout_plan,  # noqa: E402
                                               make_sweep_plan)
 from gfasort_tpu_torch.params import (LayoutSGDParams,  # noqa: E402
@@ -79,44 +89,94 @@ def _count_le(tab, depth, z):
     return c
 
 
-def _snap_table(offs):
+def _snap_table(offs, fdt=F32):
     """The kernel's per-count entries, c = oidx + 1 in [0, K]: the
     snapped offset offs[c - 1] (torch's wrap at c = 0), the next one
-    offs[min(c, K - 1)], the first as f32 and the span."""
+    offs[min(c, K - 1)], the first as a float of ``fdt`` and the span."""
     K = len(offs)
     c = np.arange(K + 1)
     i = np.where(c == 0, K - 1, c - 1)
     lo = offs[i]
     hi = offs[np.minimum(c, K - 1)]
-    lo_f = lo.astype(F32)
-    span = np.maximum(hi.astype(F32) - lo_f, F32(1.0))
+    lo_f = lo.astype(fdt)
+    span = np.maximum(hi.astype(fdt) - lo_f, fdt(1.0))
     return i, lo, hi, lo_f, span
 
 
 def _zipf_core(u, js, n, zeta, eta_z, z2t, alpha):
-    """n = max(js, 1) as f32, from the step's chain."""
+    """n = max(js, 1) as a float, from the step's chain; the maths in
+    ``u``'s dtype."""
+    fdt = u.dtype.type
     uz = u * zeta
-    arg = (eta_z * u - eta_z) + F32(1.0)
-    arg = np.where(arg < F32(1e-30), F32(1e-30), arg)
+    arg = (eta_z * u - eta_z) + fdt(1.0)
+    arg = np.where(arg < fdt(1e-30), fdt(1e-30), arg)
     with np.errstate(over="ignore"):   # inf, then clamped to n
-        general = F32(1.0) + n * np.exp(alpha * np.log(arg))
+        general = fdt(1.0) + n * np.exp(alpha * np.log(arg))
     # NaN -> 0 and the clamps to [0, n] in one: fmax returns the operand
     # that is not NaN
-    general = np.fmin(np.fmax(general, F32(0.0)), n)
+    general = np.fmin(np.fmax(general, fdt(0.0)), n)
     g = np.trunc(general).astype(np.int32)
-    z = np.where(uz < F32(1.0), 1, np.where(uz < z2t, 2, g)).astype(np.int32)
+    z = np.where(uz < fdt(1.0), 1, np.where(uz < z2t, 2, g)).astype(np.int32)
     return np.minimum(z, js)
 
 
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r):
+    """The kernel's funnel shift of a word with itself."""
+    return (x << U32(r)) | (x >> U32(32 - r))
+
+
+def threefry_words(k0, k1, t):
+    """The threefry kernel's threefry2x32 in registers: 20 rounds of the
+    counter (0, t) under the key schedule (k0, k1, k0 ^ k1 ^ 0x1BD11BDA),
+    rotations (13, 15, 26, 6) / (17, 29, 16, 24), the schedule injected
+    after every four rounds.  Returns the two output words, u32 [S]."""
+    k0, k1 = U32(k0), U32(k1)
+    ks = (k0, k1, k0 ^ k1 ^ U32(0x1BD11BDA))
+    x0 = np.full(t.shape, k0, U32)
+    x1 = t + k1
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = x0 + x1
+            x1 = _rotl(x1, r) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + U32(i + 1)
+    return x0, x1
+
+
+def threefry_draws(keys, S, fdt):
+    """One proposal's draws as the threefry kernel makes them from its
+    (k1, k2) = ``keys`` (u32 [2, 2]): ``bits = b1 ^ b2`` under k1, and
+    under k2 ``u = ((b1 ^ b2) >> 9 | 1.0f) - 1`` at f32, ``u = ((b1 <<
+    20 | b2 >> 12) | 1.0) - 1`` at f64."""
+    t = np.arange(S, dtype=U32)
+    (a0, a1), (c0, c1) = np.asarray(keys, U32)
+    b1, b2 = threefry_words(a0, a1, t)
+    bits = b1 ^ b2
+    b1, b2 = threefry_words(c0, c1, t)
+    if fdt == F32:
+        u = (((b1 ^ b2) >> U32(9)) | U32(0x3F800000)).view(F32) - F32(1.0)
+    else:
+        m = ((b1.astype(np.uint64) << np.uint64(20))
+             | (b2 >> U32(12)).astype(np.uint64))
+        u = (m | np.uint64(0x3FF0000000000000)).view(np.float64) - 1.0
+    return bits, u
+
+
 def model_sample_words(offs, zeta, eta_z, z2t, alpha, space, key_words,
-                       cooling, rank, cnt, frac, snap):
+                       cooling, rank, cnt, frac, snap, draw="hash"):
     """The kernel's words (and proposal 0's end coin) from numpy inputs:
-    ``offs`` i32 [K]; ``zeta``/``eta_z`` f32 [K]; ``z2t``/``alpha`` f32;
-    ``key_words`` [P, 2] u32 (b2, b1)."""
+    ``offs`` i32 [K]; ``zeta``/``eta_z`` f32 [K] (f64 [K] on the f64
+    route); ``z2t``/``alpha`` of the same dtype; ``key_words`` [P, 2] u32
+    (b2, b1) for ``draw`` "hash", [P, 2, 2] u32 (k1, k2) for
+    "threefry"."""
+    fdt = zeta.dtype.type
     S = len(rank)
     t = np.arange(S, dtype=U32)
     tab, depth = _search(offs)
-    ci, lo_t, hi_t, lo_f_t, span_t = _snap_table(offs)
+    ci, lo_t, hi_t, lo_f_t, span_t = _snap_table(offs, fdt)
     avail_b = rank
     avail_f = cnt - 1 - rank
     chains = []
@@ -124,8 +184,8 @@ def model_sample_words(offs, zeta, eta_z, z2t, alpha, space, key_words,
         js = np.minimum(avail, space)
         js1 = np.maximum(js, 1)
         c = _count_le(tab, depth, js1)
-        chains.append((js, zeta[ci[c]], eta_z[ci[c]], js1.astype(F32),
-                       np.maximum(avail, 1).astype(F32)))
+        chains.append((js, zeta[ci[c]], eta_z[ci[c]], js1.astype(fdt),
+                       np.maximum(avail, 1).astype(fdt)))
     has_path = cnt > 1
     back_base = rank > 0
     last = rank == cnt - 1
@@ -136,11 +196,20 @@ def model_sample_words(offs, zeta, eta_z, z2t, alpha, space, key_words,
     raw = None
     coin = None
     t_g = t * U32(0x9E3779B9)
-    for p, (b2, b1) in enumerate(np.asarray(key_words, U32)):
-        h = _mix_tail(t_g + U32((int(b1) * 0x9E3779B9) & 0xFFFFFFFF))
-        bits = _mix(h ^ b2)
-        salt = U32((int(b2) * 0x9E3779B9 + 0x632BE59B) & 0xFFFFFFFF)
-        u = (_mix(h ^ salt) >> U32(8)).astype(F32) * F32(2.0 ** -24)
+    for p, row in enumerate(np.asarray(key_words, U32)):
+        if draw == "threefry":
+            bits, u = threefry_draws(row, S, fdt)
+            # u2 = field * 2^-9, exactly
+            u2 = ((bits >> U32(20)) & U32(0x1FF)).astype(fdt) * fdt(1 / 512)
+        else:
+            b2, b1 = row
+            h = _mix_tail(t_g + U32((int(b1) * 0x9E3779B9) & 0xFFFFFFFF))
+            bits = _mix(h ^ b2)
+            salt = U32((int(b2) * 0x9E3779B9 + 0x632BE59B) & 0xFFFFFFFF)
+            u = (_mix(h ^ salt) >> U32(8)).astype(F32) * F32(2.0 ** -24)
+            # u2 = field * 2^-9 exactly, as 1 + u2 - 1 from the field's bits
+            u2 = ((((bits >> U32(6)) & U32(0x1FF << 14)) | U32(0x3F800000))
+                  .view(F32) - F32(1.0))
         if p == 0:
             coin = ((bits >> U32(29)) & U32(1)) == 1
         use_zipf = ((bits >> U32(31)) == 1) | cooling
@@ -153,10 +222,7 @@ def model_sample_words(offs, zeta, eta_z, z2t, alpha, space, key_words,
         z_unif = 1 + np.trunc(u * av).astype(np.int32)
         z = np.where(use_zipf, z_zipf, z_unif)
         c = _count_le(tab, depth, np.maximum(z, 1))
-        # u2 = field * 2^-9 exactly, as 1 + u2 - 1 from the field's bits
-        u2 = ((((bits >> U32(6)) & U32(0x1FF << 14)) | U32(0x3F800000))
-              .view(F32) - F32(1.0))
-        qfrac = (z.astype(F32) - lo_f_t[c]) / span_t[c]
+        qfrac = (z.astype(fdt) - lo_f_t[c]) / span_t[c]
         promote = (snap == "stoch") & (u2 < qfrac) & (hi_t[c] <= avail)
         oidx = c - 1 + promote
         off_sel = np.where(promote, hi_t[c], lo_t[c])
@@ -194,13 +260,15 @@ def _plan(pidx, p, P):
                            proposals=P, active_frac=1.0)
 
 
-def _jax_words(phase, p, zetas, P, cooling, rank, cnt, frac):
+def _jax_words(phase, p, zetas, P, cooling, rank, cnt, frac,
+               fdt=jnp.float32, mode=None):
     """The JAX package's words and end coin, as its engines draw them
-    (P single proposals from ``fold_in(key, p)``)."""
+    (P single proposals from ``fold_in(key, p)``), in ``fdt`` with the
+    ``sweep_rng`` mode ``mode`` (None: the environment's)."""
     S = len(rank)
-    _, _, sb = jsc.make_offset_sampler(phase.offs, p, zetas, jnp.float32)
+    _, _, sb = jsc.make_offset_sampler(phase.offs, p, zetas, fdt)
     key = jax.random.key(SEED)
-    bu = [jsc.sweep_rng(jax.random.fold_in(key, pi), S, jnp.float32)
+    bu = [jsc.sweep_rng(jax.random.fold_in(key, pi), S, fdt, mode)
           for pi in range(P)]
     rank_j, cnt_j = jnp.asarray(rank), jnp.asarray(cnt)
     if P == 1:
@@ -211,8 +279,8 @@ def _jax_words(phase, p, zetas, P, cooling, rank, cnt, frac):
     return words, np.asarray(((bu[0][0] >> 29) & 1) == 1)
 
 
-def _consts_np(phase, cooling):
-    c = tsc.sampler_consts(phase, cooling, "cpu")
+def _consts_np(phase, cooling, dtype=torch.float32):
+    c = tsc.sampler_consts(phase, cooling, "cpu", dtype)
     return (c.offs.numpy(), c.zeta.numpy(), c.eta_z.numpy(),
             c.zeta2theta.numpy()[()], c.alpha.numpy()[()], c.space), c
 
@@ -353,3 +421,78 @@ def test_snap_search_equals_searchsorted(bench_offsets):
         span_t = torch.clamp_min(hi_t.float() - lo_t.float(), 1.0)
         np.testing.assert_array_equal(span[c], span_t.numpy())
         assert c.max() == K and (K >= 16) == (depth == 7)
+
+
+# ---- the threefry routes: threefry draws at f32, and every f64 run -------
+
+# route -> (the draws' dtype, GFASORT_SWEEP_RNG); f64 always draws threefry
+ROUTES = {"threefry_f32": (F32, "threefry"), "f64": (np.float64, "hash")}
+
+
+@pytest.mark.parametrize("fdt", [F32, np.float64])
+@pytest.mark.parametrize("P", [12, 1])
+def test_threefry_model_equals_jax_draws(fdt, P):
+    """The kernel's in-register threefry draws from each proposal's (k1,
+    k2) row of ``threefry_key_table`` equal JAX's ``sweep_rng`` (threefry
+    mode: ``split(key, 2)``, then ``bits(k1)`` and ``uniform(k2, fdt)``)
+    under the same sweep keys, bit for bit, and the port's plain draws."""
+    S = 4099
+    table = sweep_key_table(key_data(SEED), 3, P)
+    tf = threefry_key_table(table)
+    jdt = jnp.float32 if fdt == F32 else jnp.float64
+    tdt = torch.float32 if fdt == F32 else torch.float64
+    for e in (0, 2):
+        for q in sorted({0, P - 1}):
+            bits, u = threefry_draws(tf[e, q], S, fdt)
+            assert bits.dtype == U32 and u.dtype == fdt
+            key = jax.random.wrap_key_data(jnp.asarray(table[e, q]))
+            jb, ju = jsc.sweep_rng(key, S, jdt, "threefry")
+            np.testing.assert_array_equal(bits, np.asarray(jb))
+            np.testing.assert_array_equal(u.view(np.uint8),
+                                          np.asarray(ju).view(np.uint8))
+            tb, tu = tsc.threefry_draws(tf[e, q], S, "cpu", tdt)
+            np.testing.assert_array_equal(bits, tb.numpy().astype(U32))
+            np.testing.assert_array_equal(u.view(np.uint8),
+                                          tu.numpy().view(np.uint8))
+
+
+@pytest.mark.parametrize("snap", ["stoch", "down"])
+@pytest.mark.parametrize("cooling", [False, True])
+@pytest.mark.parametrize("P", PROPOSALS)
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_model_words_equal_jax_threefry(workload, monkeypatch, route, P,
+                                        cooling, snap):
+    """The threefry kernel's model against the JAX package's
+    ``pack_choices_words(sample_blocks(...))`` fed with its threefry
+    draws, on plan phases 0 and 1 (active fraction 0.6 at P = 8 and 1,
+    else 1.0), and against the port's dispatcher on the CPU (the plain
+    version, from the run's ``threefry_key_table`` rows): the words and
+    the end coin bit for bit, at f32 and at f64."""
+    pidx, p, zetas, rank, cnt = workload
+    fdt, rng = ROUTES[route]
+    frac = 0.6 if P in (8, 1) else 1.0
+    monkeypatch.setenv("GFASORT_SNAP", snap)
+    plan = _plan(pidx, p, P)
+    rows = threefry_key_table(fold_in(key_data(SEED), np.arange(P)))
+    tdt = torch.float32 if fdt == F32 else torch.float64
+    jdt = jnp.float32 if fdt == F32 else jnp.float64
+    for phase in plan.phases[:2]:
+        (offs, zeta, eta_z, z2t, alpha, space), consts = _consts_np(
+            phase, cooling, tdt)
+        assert zeta.dtype == fdt and z2t.dtype == fdt
+        got, coin = model_sample_words(offs, zeta, eta_z, z2t, alpha, space,
+                                       rows, cooling, rank, cnt, frac, snap,
+                                       draw="threefry")
+        want, want_coin = _jax_words(phase, p, zetas, P, cooling, rank, cnt,
+                                     frac, jdt, "threefry")
+        assert len(got) == (1 if P == 1 else -(-P // 4))
+        for g, w in zip(got, want):
+            assert g.dtype == np.int32
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(coin, want_coin)
+        words_t, coin_t = tsc.sample_words(
+            consts, rows, cooling, torch.from_numpy(rank),
+            torch.from_numpy(cnt), frac, snap, rng, coin=True)
+        for g, w in zip(got, words_t):
+            np.testing.assert_array_equal(g, w.numpy())
+        np.testing.assert_array_equal(coin, coin_t.numpy())
