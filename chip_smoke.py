@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (they run in the order 1-4, 24-26, 28, 27, 5, 19, 6-8, 13's CLI run,
-20-21, 9, 11-12, 15-18, 22, 13-14, 10, 23); any failed check raises and
+20-21, 9, 11-12, 29, 15-18, 22, 13-14, 10, 23); any failed check raises and
 the script exits non-zero.  Every phase line carries ``t_s``, the
 script's seconds so far:
 
@@ -57,8 +57,8 @@ script's seconds so far:
                 100k-node certificate workload: rank-MAE/N <= 2e-3 and
                 Spearman >= 0.999.
 10. quality_nd — the port's layout against the C++ oracle on the 20k-node
-                layout certificate, 2D and 3D, with the bench's nD knobs:
-                stress ratio <= 1.5.
+                layout certificate, 2D and 3D, and 2D at f64, with the
+                bench's nD knobs: stress ratio <= 1.5.
 11. sweep_f64 — the 1D sweep at float64 (threefry draws in the sampler
                 kernel, every bucket in the f64 roll kernel: the plan's
                 kernel buckets must be 0), timed on the bench index at
@@ -179,9 +179,10 @@ script's seconds so far:
                 P = 8 (the sharded 3D layout's two words): 1D, 2D and
                 3D; then the f64 route's 1D, 2D and 3D cases (every
                 bucket a roll bucket: plan phases 0 and 1 and the P = 5
-                edge with the far buckets); ``torch.equal``; each timed
-                beside the plain version and the bound, with the
-                registers and spills.
+                edge with the far buckets, and phase 0 with its farthest
+                bucket fifth: short buckets after a long one);
+                ``torch.equal``; each timed beside the plain version and
+                the bound, with the registers and spills.
 26. whole_sweep — one consensus period of the 1D engine (the bench plan)
                 and of the 2D engine (the layout plan) on the bench
                 index: ``sweep_once`` / ``nd_sweep_once`` with the kernels
@@ -199,6 +200,11 @@ script's seconds so far:
                 the kernels against the plain sweeps as in
                 ``whole_sweep``, ``torch.equal``, with the kernels'
                 launches in the period.
+29. layout_f64 — the 2D layout engine at f64, a direct call on the bench
+                index at ``layout``'s depth (iter 30): the sampler and the
+                f64 nD roll kernel launch once per executed sweep, the nD
+                bucket kernel never, the plain sampler and roll passes
+                never (counted); the coordinates finite.
 
 Every bound (``bound_ms``) is the largest of five times: the bytes over
 the HBM rate, the f32 operations over the f32 peak, the f64 operations
@@ -773,19 +779,21 @@ def phase_roll(bench, plans, card_line, ptxas):
         del out, ref
         ms = cuda_ms(lambda: run(*args))
         plain_ms = cuda_ms(lambda: ref_fn(*args), 3)
-        ftype = "double" if c["dtype"] == "float64" else "float"
+        f64 = c["dtype"] == "float64"
         nw = 0 if P == 1 else n_words(P)
         if D == 1:
             f32, i32, cvt = ops_1d(P, len(rb))
             # the combine: max, divide, add
             ops = (f32 + 3, i32, cvt + 1)
-            kname = f"roll_apply_kernel<{ftype}, (int){nw}>"
+            kname = (f"roll_apply_kernel_tiled<(int){nw}>" if f64
+                     else f"roll_apply_kernel<(int){nw}>")
         else:
             f32, i32, cvt = ops_nd(D, P, len(rb))
             # the per-end combine: max, D divides, 2D adds and selects
             ops = (f32 + 4 * D + 1, i32, cvt + D)
-            kname = f"roll_apply_nd_kernel<{ftype}, (int){D}, (int){nw}>"
-        if c["dtype"] == "float64":
+            kname = (f"roll_apply_nd_kernel_tiled<(int){D}, (int){nw}>"
+                     if f64 else f"roll_apply_nd_kernel<(int){D}, (int){nw}>")
+        if f64:
             ops = as_f64(ops, P, len(rb))
         rec = dict(S=S, P=P, dtype=c["dtype"],
                    roll_buckets=[list(b) for b in rb],
@@ -839,18 +847,33 @@ def plain_sweep_nd(cs, pos, rank, cnt, rev, length, phase, consts, key_words,
 def device_launches(fn, tries: int = 2):
     """(device kernels and copies, their device ms) of one call of
     ``fn`` as ``torch.profiler`` records them; (None, None) where the
-    profiler records no device activity in ``tries`` calls (it has
-    recorded none for a call whose neighbours it recorded)."""
-    from torch.profiler import ProfilerActivity, profile
+    profiler records no device activity in ``tries`` calls.  The
+    profiler can lose a session's first device activities: after a long
+    run of unprofiled launches it does (the f64 1D sweep's sampler kernel
+    was lost after the plain f64 period, its roll kernel kept), while it
+    requests its activity buffer.  So each session first runs one fill
+    on the card, and counts only the device activities that start after
+    ``fn``'s own range opens (not the range itself, which the profiler
+    also lays on the device's timeline)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    dev_events = []
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn()
+            torch.zeros(1, device="cuda")
             torch.cuda.synchronize()
-        dev_events = [e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            with record_function("device_launches"):
+                fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        start = min(e.time_range.start for e in events
+                    if e.name == "device_launches")
+        dev_events = [e for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.time_range.start >= start
+                      and e.name != "device_launches"]
         if dev_events:
             break
     if not dev_events:
@@ -1608,18 +1631,62 @@ def phase_checkpoint(cert, x_single, tmp, card_line):
 
 
 def phase_quality_nd(card_line):
+    """The layout certificates: 2D and 3D at f32, and 2D at f64 (the
+    threefry sampler and the f64 nD roll kernel, every bucket rolled)."""
     from gfasort_tpu_torch.bench_util import layout_quality_vs_oracle
 
-    for dims in (2, 3):
+    for dims, dtype in ((2, "float32"), (3, "float32"), (2, "float64")):
         t0 = time.perf_counter()
-        q = layout_quality_vs_oracle(dims=dims, device="cuda", **ND_CERT_KW)
+        q = layout_quality_vs_oracle(dims=dims, device="cuda", dtype=dtype,
+                                     **ND_CERT_KW)
         if q is None:
             raise AssertionError("the C++ layout oracle cannot be built")
         ok = q["ratio"] <= STRESS_RATIO_MAX
         say("quality_nd", card_line, seconds=time.perf_counter() - t0,
-            passed=ok, **ND_CERT_KW, **q)
+            passed=ok, dtype=dtype, **ND_CERT_KW, **q)
         if not ok:
             raise AssertionError(f"layout certificate failed: {q}")
+
+
+def phase_layout_f64(bench, card_line):
+    """The 2D layout engine at f64, a direct call on the bench index at
+    ``layout``'s depth (iter 30): the sampler and the nD roll kernel
+    launch once per executed sweep, the nD bucket kernel never, and the
+    plain sampler and roll passes are never called; the coordinates are
+    finite.  Returns the kernels' launches."""
+    from gfasort_tpu_torch.ops.sweep_nd import path_linear_sgd_layout_sweep
+    from gfasort_tpu_torch.ops.sweep_plan import make_layout_plan
+    from gfasort_tpu_torch.params import LayoutSGDParams
+
+    lp = replace(LayoutSGDParams().derive_from_graph(bench, 2), iter_max=30,
+                 dtype="float64")
+    plan = make_layout_plan(bench, lp)
+    reset_launches()
+    with plain_call_counter() as plain_calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lay = path_linear_sgd_layout_sweep(None, lp, bench, device="cuda")
+        secs = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"sweep_sampler": plan.n_exec, "roll_apply_nd": plan.n_exec,
+            "dense_apply_nd": 0}
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"layout_f64: {launches[k]} {k} launches, "
+                                 f"expected {n}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"layout_f64: the plain versions ran on the "
+                             f"card: {plain_calls}")
+    if lay.num_nodes != bench.num_nodes or not np.isfinite(lay.coords).all():
+        raise AssertionError("layout_f64: coordinates not finite [N, 2, 2]")
+    say("layout_f64", card_line, dims=2, dtype="float64", iter_max=30,
+        nodes=bench.num_nodes, steps=bench.total_steps, engine_s=secs,
+        n_sweeps=plan.n_sweeps, exec_sweeps=plan.n_exec,
+        proposals=plan.proposals,
+        kernel_buckets=sum(len(ph.kernel_buckets) for ph in plan.phases),
+        kernel_launches={k: n for k, n in launches.items() if n},
+        plain_calls=plain_calls)
+    return launches
 
 
 # shards of the one card in the direct runs of the sharded phases
@@ -2209,7 +2276,7 @@ def main() -> int:
     samp = phase_sampler(bench, plans, card_line, ptxas)
     rres = phase_roll(bench, plans, card_line, ptxas)
     phase_whole_sweep(bench, {1: bench_plan, 2: nd_plans[2]}, card_line)
-    whole64 = phase_whole_sweep(bench, plans64, card_line, "float64")
+    phase_whole_sweep(bench, plans64, card_line, "float64")
     phase_sweep_parts(bench, bench_plan, card_line)
     phase_sweep_parts(bench, bench_plan, card_line, rng="threefry")
     phase_sweep_parts(bench, plans64[1], card_line, dtype="float64")
@@ -2234,6 +2301,7 @@ def main() -> int:
                                   "float64", "hash")
         mode_tf = phase_sweep_mode("sweep_threefry", bench, cert, card_line,
                                    "float32", "threefry")
+        launches_nd64 = phase_layout_f64(bench, card_line)
         x_sharded = phase_sharded_sweep(gfa_in, tmp, bench, cert, card_line)
         phase_sharded_layout(gfa_in, tmp, card_line)
         phase_sharded_batched(gfa_in, tmp, cert, card_line)
@@ -2319,7 +2387,7 @@ def main() -> int:
                          {k: v for k, v in rres.items()
                           if k[0] == "1d" and v["dtype"] == "float64"},
                          rres[("1d", "f64_0")],
-                         note="roll_apply_kernel<double>; launches in "
+                         note="roll_apply_kernel_tiled<NW>; launches in "
                               "sweep_f64's full-depth run; the times are "
                               "plan phase 0's, every bucket rolled")]),
         kernel_entry("roll_apply_nd", "gfasort_tpu_torch/csrc/roll_apply.cu",
@@ -2334,13 +2402,14 @@ def main() -> int:
                          "roll_apply_nd:f64",
                          "gfasort_tpu_torch/csrc/roll_apply.cu",
                          "gfasort_tpu/ops/sweep_nd.py:105-185",
-                         whole64[2]["roll_apply_nd"],
+                         launches_nd64["roll_apply_nd"],
                          {k: v for k, v in rres.items()
                           if k[0] != "1d" and v["dtype"] == "float64"},
                          rres[("2d", "f64_0")],
-                         note="roll_apply_nd_kernel<double>; launches in "
-                              "whole_sweep_f64's 2D period; the times are the "
-                              "2D plan's phase 0, every bucket rolled")]),
+                         note="roll_apply_nd_kernel_tiled<D, NW>; launches "
+                              "in layout_f64's 2D run (iter 30); the times "
+                              "are the 2D plan's phase 0, every bucket "
+                              "rolled")]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

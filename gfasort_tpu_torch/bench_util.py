@@ -593,15 +593,16 @@ def layout_quality_vs_oracle(
     device="cuda",
     engine: str = "sweep",
     mesh=None,
+    dtype: str = "float32",
     **sweep_kw,
 ) -> Optional[dict]:
     """Layout certificate: sampled stress of the port's layout vs the C++
     oracle layout on the same workload and from the same initial
-    coordinates.  ``engine``: ``"sweep"`` (f32, ``pow_mode="fast"``,
-    ``sweep_kw`` passed on), ``"sweep-sharded"`` (the same on ``mesh``,
-    by default ``default_mesh`` on ``device``) or ``"batched"`` (f32
-    states, the engine's default ``pow_mode="fpp"``).  None when the C++
-    oracle cannot be built."""
+    coordinates.  ``engine``: ``"sweep"`` (``dtype``, f32 by default, or
+    f64; ``pow_mode="fast"``, ``sweep_kw`` passed on), ``"sweep-sharded"``
+    (the same on ``mesh``, by default ``default_mesh`` on ``device``) or
+    ``"batched"`` (f32 states, the engine's default ``pow_mode="fpp"``).
+    None when the C++ oracle cannot be built."""
     from .native import available, path_linear_sgd_layout_native
     from .ops.exact import calculate_layout_stress_pidx, layout_initial_coords
     from .ops.sweep_nd import path_linear_sgd_layout_sweep
@@ -611,7 +612,7 @@ def layout_quality_vs_oracle(
         return None
     pidx = synthetic_path_index(n_nodes, n_paths, steps_per_path, seed=11)
     lp = LayoutSGDParams().derive_from_graph(pidx, dims)
-    lp = replace(lp, dtype="float32", pow_mode="fast")
+    lp = replace(lp, dtype=dtype, pow_mode="fast")
     init = layout_initial_coords(pidx, dims, lp.seed)
 
     if engine == "batched":
@@ -878,13 +879,14 @@ def roll_cases(pidx, plans, dev, f64: bool = True):
     having no proposal clamp).  Then, with ``f64``, the f64 route's
     cases in 1D, 2D and 3D (f64 state, the f64 sampler's words, every
     bucket a roll bucket as the f64 plans have them): plan phases 0 and 1
-    (``"f64_0"``, ``"f64_1"``) and the edge (``"f64_edge"``: P = 5,
-    phase 0's buckets and the far ones).  One dict per case: ``dims``,
-    ``phase_of_plan``, ``P``, ``kb``, ``rb``, ``kernel`` ("roll_apply" or
-    "roll_apply_nd"), ``dtype`` ("float32" or "float64"), ``words_in`` /
-    ``words_out`` (the 4-byte words per step each input and output
-    holds, for the byte bound) and ``args`` for ``roll_apply`` /
-    ``roll_apply_nd``."""
+    (``"f64_0"``, ``"f64_1"``), the edge (``"f64_edge"``: P = 5,
+    phase 0's buckets and the far ones) and phase 0 with its farthest
+    bucket fifth (``"f64_order"``: short buckets after a long one).  One
+    dict per case: ``dims``, ``phase_of_plan``, ``P``, ``kb``, ``rb``,
+    ``kernel`` ("roll_apply" or "roll_apply_nd"), ``dtype`` ("float32"
+    or "float64"), ``words_in`` / ``words_out`` (the 4-byte words per
+    step each input and output holds, for the byte bound) and ``args``
+    for ``roll_apply`` / ``roll_apply_nd``."""
     import torch
 
     from .convert import layout_static_arrays
@@ -920,6 +922,10 @@ def roll_cases(pidx, plans, dev, f64: bool = True):
             yield f"f64_{ph_i}", ph, P, (), all_rolled(ph)
         ph = plan.phases[0]
         yield "f64_edge", ph, 5, (), all_rolled(ph) + edge_rb
+        # the farthest bucket moved after the first four: the short ones
+        # behind it run on the long path
+        rb = all_rolled(ph)
+        yield "f64_order", ph, P, (), rb[:4] + rb[-1:] + rb[4:-1]
 
     def n_words(P):
         return 1 if P == 1 else -(-P // 4)

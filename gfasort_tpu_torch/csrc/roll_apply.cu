@@ -50,20 +50,38 @@
 // each [D, S] / [2D, S] row's pointer once per thread in 64 bits (2D * S
 // may pass 2^31 where S does not) and indexes it with the 32-bit step.
 // Loads go through __ldg from __restrict__ pointers.
-// Both kernels are templated on the float type as well: the f64 route
-// (gfasort_tpu/ops/sweep.py:328-380 and sweep_nd.py:105-185 at f64, where
-// every bucket of a phase is a roll bucket) runs them in double, with
-// the double ops in the same order (__d*_rn), the constants 1e-9, 0.5,
-// 1e-18 and 1e30 and eta in double, and the nD rsqrt as 1.0 /
-// __dsqrt_rn, as the plain version's sqrt_rn.  A double load is twice a
-// float's bytes, and the double IEEE divide and square root are long
-// instruction sequences: the f64 kernels are bound by those beside the
-// field match.
-// Left for later: evaluating each pair once (the bucket kernels' pair
-// table does not reach partners k > KMAX away).
+// The f64 route (gfasort_tpu/ops/sweep.py:328-380 and sweep_nd.py:105-185
+// at f64, where every bucket of a phase is a roll bucket, k = 1 included)
+// has kernels of its own, with the double ops in the same order
+// (__d*_rn), the constants 1e-9, 0.5, 1e-18 and 1e30 and eta in double,
+// and the nD rsqrt as 1.0 / __dsqrt_rn, as the plain version's sqrt_rn.
+// There the double IEEE divide (and in nD the square root and a second
+// divide) are long DFMA sequences, and each step's partners pass through
+// L1 and L2 once per bucket.  Both are paid once per pair in the f64
+// kernels (roll_apply_kernel_tiled, roll_apply_nd_kernel_tiled): a block
+// owns kTile consecutive steps, one per thread; the leading buckets with
+// k <= kHalo (the short prefix, chosen by the host to fit kSmemBudget; a
+// short bucket after a long one runs on the long path, so each step's
+// sums keep the list order) run from shared memory.  The tile and its
+// halo h (the prefix's largest k), steps [t0 - h, t0 + kTile + h) each
+// taken mod S, are staged once with cp.async.  The block then evaluates
+// each pair (a, a + k) of each short bucket with an end in the tile
+// once, the pairs of all short buckets round robin over its threads, into
+// one pair table; after one barrier each step adds its two ends per
+// bucket in list order.  The ends share d, safe, mu, |dx| and, in nD,
+// mag^2 and r, since a - b = -(b - a) exactly; only the signs differ (1D:
+// half_sgn, except where dx == 0 and both ends take 1e-9; nD: delta,
+// except delta[0] = 1e-9 where mag^2 == 0) and the weights (equal but at
+// the wrap-around, where both ends' guards fail together and each counts
+// its own field).  1D tables hold both ends' updates and weights; nD ones
+// r, both weights and mag^2 == 0, step t then forming -(w * r) * delta
+// to its staged partner.  The long buckets follow as in the f32 kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <climits>
+#include <type_traits>
 
 namespace {
 
@@ -76,6 +94,14 @@ constexpr int kThreads = 256;
 // registers (36 at 256), a full SM of warps; 6% faster at D = 2, P = 8 on
 // an H100 (tools/kernel_ab.py), equal at 64 threads.
 constexpr int kThreadsNd = 128;
+// The f64 kernels: steps per block (one per thread), the largest offset
+// of a short bucket (the halo staged on each side of a tile), and the
+// shared memory a block may take (the default limit; four or more blocks
+// fit on an SM).  Against 256 / 128 and 512 / 256 on an H100
+// (tools/kernel_ab.py, PERF.md), 128 / 64 was the fastest.
+constexpr int kTile = 128;
+constexpr int kHalo = 64;
+constexpr int kSmemBudget = 48 * 1024;
 
 // T: float or double, the run's dtype.
 template <typename T>
@@ -98,6 +124,9 @@ struct RollParams {
   int kmod[kMaxBuckets];      // k mod S
   int ahead[kMaxBuckets];     // the ahead guard t + k < S as t < ahead
   uint32_t last_live;         // the used fields' top bits, last word
+  int n_short;                // f64: the short buckets, a prefix
+  int halo;                   // f64: their largest k (0: none)
+  int n_pairs;                // f64: their pairs per tile, sum of kTile + k
 };
 
 // Round-to-nearest arithmetic of either float type, in the plain
@@ -348,6 +377,568 @@ roll_apply_nd_kernel(const RollParams<T> prm) {
   }
 }
 
+// ---- the f64 kernels: a tile of steps and its halo in shared memory ----
+
+// A staged step's words: NWS of them padded to 1, 2 or 4 (one shared
+// load); its doubles (1D: x, pos; nD: my_c's D coordinates, my_pos)
+// padded to an even count (loaded two at a time).
+__host__ __device__ constexpr int padded_words(int nws) {
+  return nws == 1 ? 1 : nws == 2 ? 2 : 4;
+}
+__host__ __device__ constexpr int padded_doubles(int n) { return n + (n & 1); }
+
+// Shared memory of an f64 kernel for a halo h: the kTile + 2h steps
+// [t0 - h, t0 + kTile + h), each `row_bytes` of doubles, then each
+// `word_bytes` of words, then the pair table of `n_pairs` entries, each
+// `tab_bytes` of doubles and one 4-byte word of weights (byte offsets).
+struct TileLayout {
+  int n_st, words, tab_f, tab_w, bytes;
+};
+
+__host__ __device__ inline TileLayout tile_layout(int h, int row_bytes,
+                                                  int word_bytes, int n_pairs,
+                                                  int tab_bytes) {
+  TileLayout L;
+  L.n_st = kTile + 2 * h;
+  L.words = row_bytes * L.n_st;
+  L.tab_f = (L.words + word_bytes * L.n_st + 15) & ~15;
+  L.tab_w = L.tab_f + tab_bytes * n_pairs;
+  L.bytes = L.tab_w + 4 * n_pairs;
+  return L;
+}
+
+// (t mod S) for any int t.
+__device__ __forceinline__ int wrap_index(int t, int S) {
+  t %= S;
+  return t < 0 ? t + S : t;
+}
+
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(kBytes)
+               : "memory");
+}
+
+// Stage the steps [t0 - h, t0 + kTile + h), each taken mod S: step i's
+// DP doubles at st[i * DP] (n_rows of them: row r < n_rows - 1 at
+// xs + r * S, the last one pos) and its words at sw[i * NWP].
+template <int DP, int NWS>
+__device__ __forceinline__ void stage_tile(const RollParams<double>& prm,
+                                           int n_rows, int t0, int h,
+                                           int n_st, double* st,
+                                           uint32_t* sw) {
+  constexpr int NWP = padded_words(NWS);
+  const int S = prm.S;
+  for (int i = threadIdx.x; i < n_st; i += kTile) {
+    int g = t0 - h + i;
+    g = g >= 0 && g < S ? g : wrap_index(g, S);
+    for (int r = 0; r < n_rows; ++r) {
+      const double* row = r == n_rows - 1
+                              ? prm.pos
+                              : prm.xs + static_cast<long long>(r) * S;
+      cp_async<8>(st + i * DP + r, row + g);
+    }
+#pragma unroll
+    for (int j = 0; j < NWS; ++j) {
+      cp_async<4>(sw + i * NWP + j, prm.words[j] + g);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Staged step i's words, in one shared load.
+template <int NWS>
+__device__ __forceinline__ void staged_words(const uint32_t* sw, int i,
+                                             uint32_t (&w)[kMaxWords]) {
+  constexpr int NWP = padded_words(NWS);
+  if (NWP == 4) {
+    const uint4 v = reinterpret_cast<const uint4*>(sw)[i];
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if (NWP == 2) {
+    const uint2 v = reinterpret_cast<const uint2*>(sw)[i];
+    w[0] = v.x; w[1] = v.y;
+  } else {
+    w[0] = sw[i];
+  }
+}
+
+// Staged step i's DP doubles, two at a time.
+template <int DP>
+__device__ __forceinline__ void staged_row(const double* st, int i,
+                                           double (&v)[DP]) {
+  const double2* p = reinterpret_cast<const double2*>(st + i * DP);
+#pragma unroll
+  for (int d = 0; d < DP / 2; ++d) {
+    const double2 q = p[d];
+    v[2 * d] = q.x;
+    v[2 * d + 1] = q.y;
+  }
+}
+
+// Both ends' weights of the pair (a, b = a + k), a word at a time, as
+// weight_words counts them at each end: end a the proposals whose field
+// at a is `plus` or, where `guard` holds, whose field at b is `minus`;
+// end b the converse.  The ends' wrap guards (a < S - k and b >= k, for
+// a, b in [0, S)) hold together.
+template <int NW>
+__device__ __forceinline__ void pair_weights(const uint32_t (&fa)[kMaxWords],
+                                             const uint32_t (&fb)[kMaxWords],
+                                             uint32_t plus, uint32_t minus,
+                                             bool guard, uint32_t last_live,
+                                             int& na, int& nb) {
+  if (NW == 0) {
+    const bool a = fa[0] == plus, b = fb[0] == minus;
+    na = a || (guard && b);
+    nb = b || (guard && a);
+    return;
+  }
+  uint32_t ma = 0u, mb = 0u;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    const uint32_t live = j == NW - 1 ? last_live : 0x80808080u;
+    ma |= eq_fields(fa[j], plus, live) >> j;
+    mb |= eq_fields(fb[j], minus, live) >> j;
+  }
+  const uint32_t g = guard ? 0xFFFFFFFFu : 0u;
+  na = __popc(ma | (mb & g));
+  nb = __popc(mb | (ma & g));
+}
+
+// The pair's d != 0, safe and mu (pair_base with a unit weight: 1 where
+// the pair counts).
+__device__ __forceinline__ bool pair_valid(double pa, double pb, double eta,
+                                           double& safe, double& mu) {
+  double one;
+  pair_base(pa, pb, 1.0, eta, one, safe, mu);
+  return one != 0.0;
+}
+
+// The nD pair's update scale r from its delta, as half_nd forms it
+// (delta[0] = 1e-9 where mag^2 == 0, flagged in `zero`): the same at
+// both ends, as mag^2 is.
+template <int D>
+__device__ __forceinline__ double pair_scale(double (&delta)[D], double safe,
+                                             double mu, bool& zero) {
+  double mag2 = __dmul_rn(delta[0], delta[0]);
+#pragma unroll
+  for (int d = 1; d < D; ++d) {
+    mag2 = __dadd_rn(mag2, __dmul_rn(delta[d], delta[d]));
+  }
+  zero = mag2 == 0.0;
+  if (zero) {
+    delta[0] = 1e-9;
+    mag2 = 1e-18;
+  }
+  const double inv = __ddiv_rn(1.0, __dsqrt_rn(mag2));
+  const double mag = __dmul_rn(mag2, inv);
+  const double r_raw =
+      __dmul_rn(__dmul_rn(__dmul_rn(mu, __dsub_rn(mag, safe)), 0.5), inv);
+  return r_raw > 1e30 ? 1e30 : r_raw;
+}
+
+// A tile's staged steps (DP doubles and the words of each, from t0 - h)
+// and the guard rule: where S >= kTile + 2 kHalo (`fast`) the pair
+// (a, a + k) with a = t0 + j - k in [-k, S) wraps, and fails its guard,
+// exactly where a < 0 or a + k >= S; otherwise a mod S < S - k, or never
+// where k >= S.
+struct Tile {
+  const double* st;
+  const uint32_t* sw;
+  int h, t0;
+  bool fast;
+};
+
+__device__ __forceinline__ bool pair_guard(const RollParams<double>& prm,
+                                           const Tile& tl, int b, int a) {
+  const int k = prm.k[b];
+  return tl.fast ? a >= 0 && a + k < prm.S
+                 : wrap_index(a, prm.S) < prm.ahead[b];
+}
+
+// Both ends of pair j of short bucket b in 1D: the updates and the
+// weights (0 where d == 0) the ends a = t0 + j - k (staged at h - k + j)
+// and a + k (at h + j) receive, the weights packed na | nb << 8.
+struct Pair1d {
+  double2 u;
+  uint32_t w;
+};
+
+template <int NW>
+__device__ __forceinline__ Pair1d pair_1d(const RollParams<double>& prm,
+                                          const Tile& tl, int b, int j) {
+  constexpr int NWS = NW == 0 ? 1 : NW;
+  const int k = prm.k[b];
+  const int la = tl.h - k + j, lb = tl.h + j;
+  uint32_t plus, minus;
+  bucket_choices<NW>(prm.ki[b], plus, minus);
+  uint32_t fa[kMaxWords], fb[kMaxWords];
+  staged_words<NWS>(tl.sw, la, fa);
+  staged_words<NWS>(tl.sw, lb, fb);
+  const double2 A = reinterpret_cast<const double2*>(tl.st)[la];   // x, pos
+  const double2 B = reinterpret_cast<const double2*>(tl.st)[lb];
+  int na, nb;
+  pair_weights<NW>(fa, fb, plus, minus, pair_guard(prm, tl, b, tl.t0 + j - k),
+                   prm.last_live, na, nb);
+  double safe, mu;
+  const bool valid = pair_valid(A.y, B.y, prm.eta, safe, mu);
+  double dxa = __dsub_rn(A.x, B.x);
+  double dxb = __dsub_rn(B.x, A.x);
+  dxa = dxa == 0.0 ? 1e-9 : dxa;
+  dxb = dxb == 0.0 ? 1e-9 : dxb;
+  // mu * (|dx| - safe), the same at both ends; then half_1d's signs
+  const double q = __dmul_rn(mu, __dsub_rn(fabs(dxa), safe));
+  na = valid ? na : 0;
+  nb = valid ? nb : 0;
+  Pair1d r;
+  r.u.x = __dmul_rn(-__int2double_rn(na),
+                    __dmul_rn(q, dxa >= 0.0 ? 0.5 : -0.5));
+  r.u.y = __dmul_rn(-__int2double_rn(nb),
+                    __dmul_rn(q, dxb >= 0.0 ? 0.5 : -0.5));
+  r.w = static_cast<uint32_t>(na) | static_cast<uint32_t>(nb) << 8;
+  return r;
+}
+
+// The nD twin: r (the same at both ends) and the weights, packed
+// na | nb << 8 | (mag^2 == 0) << 16.
+struct PairNd {
+  double r;
+  uint32_t w;
+};
+
+template <int D, int NW>
+__device__ __forceinline__ PairNd pair_nd(const RollParams<double>& prm,
+                                          const Tile& tl, int b, int j) {
+  constexpr int NWS = NW == 0 ? 1 : NW;
+  constexpr int DP = padded_doubles(D + 1);
+  const int k = prm.k[b];
+  const int la = tl.h - k + j, lb = tl.h + j;
+  uint32_t plus, minus;
+  bucket_choices<NW>(prm.ki[b], plus, minus);
+  uint32_t fa[kMaxWords], fb[kMaxWords];
+  staged_words<NWS>(tl.sw, la, fa);
+  staged_words<NWS>(tl.sw, lb, fb);
+  double A[DP], B[DP];   // coordinates, then pos
+  staged_row<DP>(tl.st, la, A);
+  staged_row<DP>(tl.st, lb, B);
+  int na, nb;
+  pair_weights<NW>(fa, fb, plus, minus, pair_guard(prm, tl, b, tl.t0 + j - k),
+                   prm.last_live, na, nb);
+  double safe, mu;
+  const bool valid = pair_valid(A[D], B[D], prm.eta, safe, mu);
+  double delta[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) delta[d] = __dsub_rn(A[d], B[d]);
+  bool zero;
+  PairNd r;
+  r.r = pair_scale<D>(delta, safe, mu, zero);
+  r.w = static_cast<uint32_t>(valid ? na : 0) |
+        static_cast<uint32_t>(valid ? nb : 0) << 8 |
+        static_cast<uint32_t>(zero) << 16;
+  return r;
+}
+
+// Pair j of short bucket b sits at table entry off_b + j, off_b the sum
+// of kTile + k over the buckets before it.  Thread tid takes pair tid of
+// every short bucket, two buckets a round (two independent chains; with
+// an odd count the last round repeats its first, unstored), then the
+// extra pairs j in [kTile, kTile + k) of all of them round robin:
+// extra e is pair kTile + e - (the k of the buckets before) of the
+// first bucket whose k it does not pass.
+struct Extra {
+  int b, j, entry;
+};
+
+__device__ __forceinline__ Extra extra_pair(const RollParams<double>& prm,
+                                            int e) {
+  int b = 0, off = 0;
+  while (e >= prm.k[b]) {
+    e -= prm.k[b];
+    off += kTile + prm.k[b];
+    ++b;
+  }
+  return Extra{b, kTile + e, off + kTile + e};
+}
+
+// 1D f64.  A block owns the tile [t0, t0 + kTile), one step per thread.
+// The short buckets (the prefix of n_short) run from shared memory: the
+// tile and its halo h are staged once; the block evaluates each pair
+// (a, a + k) of each short bucket with an end in the tile once (pair j
+// of bucket b: a = t0 + j - k, j in [0, kTile + k)), both ends' updates
+// and weights into the pair table, and after one barrier step t adds,
+// per short bucket in order, pair t - t0 + k's first end and pair
+// t - t0's second.  The long buckets follow as in the f32 kernel.
+template <int NW>
+__global__ void __launch_bounds__(kTile)
+roll_apply_kernel_tiled(const __grid_constant__ RollParams<double> prm) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NWS = NW == 0 ? 1 : NW;
+  const int S = prm.S;
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * kTile;
+  const int t = t0 + tid;
+  const bool live = t < S;
+  const double* __restrict__ xs = prm.xs;
+  const double* __restrict__ pos = prm.pos;
+  double x = 0.0, p = 0.0, dsum = 0.0, csum = 0.0;
+  uint32_t mine[kMaxWords] = {};
+  if (live) {
+    x = __ldg(xs + t);
+    p = __ldg(pos + t);
+    load_words_n<NW>(prm, t, mine);
+    dsum = prm.acc_in ? __ldg(prm.acc_in + t) : 0.0;
+    csum = prm.w_in ? __ldg(prm.w_in + t) : 0.0;
+  }
+  if (prm.n_short > 0) {
+    const int h = prm.halo, n = prm.n_pairs;
+    const TileLayout L =
+        tile_layout(h, 16, 4 * padded_words(NWS), n, 16);
+    double* st = reinterpret_cast<double*>(smem);
+    uint32_t* sw = reinterpret_cast<uint32_t*>(smem + L.words);
+    double2* tu = reinterpret_cast<double2*>(smem + L.tab_f);
+    uint32_t* tw = reinterpret_cast<uint32_t*>(smem + L.tab_w);
+    stage_tile<2, NWS>(prm, 2, t0, h, L.n_st, st, sw);
+    const Tile tl{st, sw, h, t0, S >= kTile + 2 * kHalo};
+    for (int b = 0, off = 0; b < prm.n_short; b += 2) {
+      const bool two = b + 1 < prm.n_short;
+      const Pair1d r1 = pair_1d<NW>(prm, tl, b, tid);
+      const Pair1d r2 = pair_1d<NW>(prm, tl, two ? b + 1 : b, tid);
+      tu[off + tid] = r1.u;
+      tw[off + tid] = r1.w;
+      off += kTile + prm.k[b];
+      if (two) {
+        tu[off + tid] = r2.u;
+        tw[off + tid] = r2.w;
+        off += kTile + prm.k[b + 1];
+      }
+    }
+    for (int e = tid; e < n - prm.n_short * kTile; e += kTile) {
+      const Extra x = extra_pair(prm, e);
+      const Pair1d r = pair_1d<NW>(prm, tl, x.b, x.j);
+      tu[x.entry] = r.u;
+      tw[x.entry] = r.w;
+    }
+    __syncthreads();
+    if (live) {
+      for (int b = 0, off = 0; b < prm.n_short; off += kTile + prm.k[b], ++b) {
+        const int i1 = off + tid + prm.k[b], i2 = off + tid;
+        const uint32_t w1 = tw[i1], w2 = tw[i2];
+        dsum = __dadd_rn(__dadd_rn(dsum, tu[i1].x), tu[i2].y);
+        csum = __dadd_rn(__dadd_rn(csum, __int2double_rn(w1 & 0xFFu)),
+                         __int2double_rn(w2 >> 8));
+      }
+    }
+  }
+  if (!live) return;
+  // the long buckets, as roll_apply_kernel
+  for (int b = prm.n_short; b < prm.n_buckets; ++b) {
+    int ja, jb;
+    partners(t, prm.kmod[b], S, ja, jb);
+    uint32_t plus, minus;
+    bucket_choices<NW>(prm.ki[b], plus, minus);
+    uint32_t fa[kMaxWords], fb[kMaxWords];
+    load_words_n<NW>(prm, ja, fa);
+    load_words_n<NW>(prm, jb, fb);
+    double w1, w2;
+    const double u1 = half_1d(
+        x, p, __ldg(xs + ja), __ldg(pos + ja),
+        weight_words<double, NW>(mine, fa, plus, minus, t < prm.ahead[b],
+                                 prm.last_live),
+        prm.eta, w1);
+    const double u2 = half_1d(
+        x, p, __ldg(xs + jb), __ldg(pos + jb),
+        weight_words<double, NW>(mine, fb, minus, plus, t >= prm.k[b],
+                                 prm.last_live),
+        prm.eta, w2);
+    dsum = __dadd_rn(__dadd_rn(dsum, u1), u2);
+    csum = __dadd_rn(__dadd_rn(csum, w1), w2);
+  }
+  prm.out[t] = __dadd_rn(x, __ddiv_rn(dsum, csum < 1.0 ? 1.0 : csum));
+}
+
+// nD f64, as the 1D kernel: a staged step holds my_c's D coordinates and
+// my_pos; the pair table holds each pair's r (the same at both ends),
+// both ends' weights and whether mag^2 == 0, and step t forms its own
+// delta to its staged partner (the other end's negated, exactly, but for
+// delta[0] = 1e-9 where mag^2 == 0) and -(w * r) * delta.
+template <int D, int NW>
+__global__ void __launch_bounds__(kTile)
+roll_apply_nd_kernel_tiled(const __grid_constant__ RollParams<double> prm) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NWS = NW == 0 ? 1 : NW;
+  constexpr int DP = padded_doubles(D + 1);
+  const int S = prm.S;
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * kTile;
+  const int t = t0 + tid;
+  const bool live = t < S;
+  const double* __restrict__ pos = prm.pos;
+  // row d of [D, S] / [2D, S] at d * S, formed in 64 bits
+  const double* __restrict__ rows[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) rows[d] = prm.xs + static_cast<long long>(d) * S;
+  double p = 0.0, wacc = 0.0, c[D], acc[D];
+  uint32_t mine[kMaxWords] = {};
+#pragma unroll
+  for (int d = 0; d < D; ++d) c[d] = acc[d] = 0.0;
+  if (live) {
+    p = __ldg(pos + t);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      c[d] = __ldg(rows[d] + t);
+      acc[d] = prm.acc_in
+                   ? __ldg(prm.acc_in + static_cast<long long>(d) * S + t)
+                   : 0.0;
+    }
+    load_words_n<NW>(prm, t, mine);
+    wacc = prm.w_in ? __ldg(prm.w_in + t) : 0.0;
+    // the combine's inputs, read after every bucket: into L2 now
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(prm.lane0 + t));
+#pragma unroll
+    for (int d = 0; d < 2 * D; ++d) {
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(
+          prm.cs + static_cast<long long>(d) * S + t));
+    }
+  }
+  if (prm.n_short > 0) {
+    const int h = prm.halo, n = prm.n_pairs;
+    const TileLayout L =
+        tile_layout(h, 8 * DP, 4 * padded_words(NWS), n, 8);
+    double* st = reinterpret_cast<double*>(smem);
+    uint32_t* sw = reinterpret_cast<uint32_t*>(smem + L.words);
+    double* tr = reinterpret_cast<double*>(smem + L.tab_f);
+    uint32_t* tw = reinterpret_cast<uint32_t*>(smem + L.tab_w);
+    stage_tile<DP, NWS>(prm, D + 1, t0, h, L.n_st, st, sw);
+    const Tile tl{st, sw, h, t0, S >= kTile + 2 * kHalo};
+    for (int b = 0, off = 0; b < prm.n_short; b += 2) {
+      const bool two = b + 1 < prm.n_short;
+      const PairNd r1 = pair_nd<D, NW>(prm, tl, b, tid);
+      const PairNd r2 = pair_nd<D, NW>(prm, tl, two ? b + 1 : b, tid);
+      tr[off + tid] = r1.r;
+      tw[off + tid] = r1.w;
+      off += kTile + prm.k[b];
+      if (two) {
+        tr[off + tid] = r2.r;
+        tw[off + tid] = r2.w;
+        off += kTile + prm.k[b + 1];
+      }
+    }
+    for (int e = tid; e < n - prm.n_short * kTile; e += kTile) {
+      const Extra x = extra_pair(prm, e);
+      const PairNd r = pair_nd<D, NW>(prm, tl, x.b, x.j);
+      tr[x.entry] = r.r;
+      tw[x.entry] = r.w;
+    }
+    __syncthreads();
+    if (live) {
+      for (int b = 0, off = 0; b < prm.n_short; off += kTile + prm.k[b], ++b) {
+        const int k = prm.k[b];
+        const int i1 = off + tid + k, i2 = off + tid;
+        const uint32_t tw1 = tw[i1], tw2 = tw[i2];
+        const double w1 = __int2double_rn(tw1 & 0xFFu);
+        const double w2 = __int2double_rn((tw2 >> 8) & 0xFFu);
+        const double nwr1 = -__dmul_rn(w1, tr[i1]);
+        const double nwr2 = -__dmul_rn(w2, tr[i2]);
+        double ca[DP], cb[DP];
+        staged_row<DP>(st, h + tid + k, ca);
+        staged_row<DP>(st, h + tid - k, cb);
+        double u1[D], u2[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          double d1 = __dsub_rn(c[d], ca[d]);
+          double d2 = __dsub_rn(c[d], cb[d]);
+          if (d == 0) {
+            d1 = tw1 >> 16 ? 1e-9 : d1;
+            d2 = tw2 >> 16 ? 1e-9 : d2;
+          }
+          u1[d] = __dmul_rn(nwr1, d1);
+          u2[d] = __dmul_rn(nwr2, d2);
+        }
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          acc[d] = __dadd_rn(__dadd_rn(acc[d], u1[d]), u2[d]);
+        }
+        wacc = __dadd_rn(__dadd_rn(wacc, w1), w2);
+      }
+    }
+  }
+  if (!live) return;
+  // the long buckets and the combine, as roll_apply_nd_kernel
+  for (int b = prm.n_short; b < prm.n_buckets; ++b) {
+    int ja, jb;
+    partners(t, prm.kmod[b], S, ja, jb);
+    uint32_t plus, minus;
+    bucket_choices<NW>(prm.ki[b], plus, minus);
+    uint32_t fa[kMaxWords], fb[kMaxWords];
+    load_words_n<NW>(prm, ja, fa);
+    load_words_n<NW>(prm, jb, fb);
+    double ca[D], cb[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      ca[d] = __ldg(rows[d] + ja);
+      cb[d] = __ldg(rows[d] + jb);
+    }
+    double u1[D], u2[D], w1, w2;
+    half_nd<double, D>(p, c, __ldg(pos + ja), ca,
+                       weight_words<double, NW>(mine, fa, plus, minus,
+                                                t < prm.ahead[b],
+                                                prm.last_live),
+                       prm.eta, w1, u1);
+    half_nd<double, D>(p, c, __ldg(pos + jb), cb,
+                       weight_words<double, NW>(mine, fb, minus, plus,
+                                                t >= prm.k[b], prm.last_live),
+                       prm.eta, w2, u2);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      acc[d] = __dadd_rn(__dadd_rn(acc[d], u1[d]), u2[d]);
+    }
+    wacc = __dadd_rn(__dadd_rn(wacc, w1), w2);
+  }
+  const bool lane0 = __ldg(prm.lane0 + t) != 0;
+  const double div = wacc < 1.0 ? 1.0 : wacc;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const double upd = __ddiv_rn(acc[d], div);
+    const long long r0 = static_cast<long long>(d) * S + t;
+    const long long r1 = static_cast<long long>(D + d) * S + t;
+    prm.out[r0] = __dadd_rn(__ldg(prm.cs + r0), lane0 ? upd : 0.0);
+    prm.out[r1] = __dadd_rn(__ldg(prm.cs + r1), lane0 ? 0.0 : upd);
+  }
+}
+
+// The f64 kernels' short prefix: the leading buckets with k <= kHalo
+// whose staged tile and pair table fit kSmemBudget (staged steps of
+// `row_bytes` of doubles, table entries of `tab_bytes` of doubles).
+// Returns the shared memory it takes (0: none).
+int short_prefix(RollParams<double>& prm, int row_bytes, int tab_bytes) {
+  prm.n_short = prm.halo = prm.n_pairs = 0;
+  if (prm.S > INT_MAX - (kTile + 2 * kHalo)) return 0;
+  const int word_bytes = 4 * padded_words(prm.n_words);
+  int bytes = 0;
+  for (int b = 0; b < prm.n_buckets && prm.k[b] <= kHalo; ++b) {
+    const int h = prm.k[b] > prm.halo ? prm.k[b] : prm.halo;
+    const int n = prm.n_pairs + kTile + prm.k[b];
+    const int need = tile_layout(h, row_bytes, word_bytes, n, tab_bytes).bytes;
+    if (need > kSmemBudget) break;
+    prm.n_short = b + 1;
+    prm.halo = h;
+    prm.n_pairs = n;
+    bytes = need;
+  }
+  return bytes;
+}
+
+// Launch an f64 kernel with `bytes` of shared memory.
+template <typename K>
+int launch_tiled(K kernel, const RollParams<double>& prm, int bytes,
+                 cudaStream_t st) {
+  kernel<<<(prm.S + kTile - 1) / kTile, kTile, bytes, st>>>(prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int check_and_fill(RollParams<T>& prm, int device, const T* xs, const T* pos,
                    const int* w0, const int* w1, const int* w2, const int* w3,
@@ -404,26 +995,52 @@ int roll_1d(int device, const T* xs, const T* pos, const int* w0,
                                  n_words, proposals, S, eta, ks, kis,
                                  n_buckets, dsum, csum, out);
   if (err != 0) return err;
-  const int blocks = (S + kThreads - 1) / kThreads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (proposals == 1 ? 0 : n_words) {
-    case 0: roll_apply_kernel<T, 0><<<blocks, kThreads, 0, st>>>(prm); break;
-    case 1: roll_apply_kernel<T, 1><<<blocks, kThreads, 0, st>>>(prm); break;
-    case 2: roll_apply_kernel<T, 2><<<blocks, kThreads, 0, st>>>(prm); break;
-    case 3: roll_apply_kernel<T, 3><<<blocks, kThreads, 0, st>>>(prm); break;
-    default: roll_apply_kernel<T, 4><<<blocks, kThreads, 0, st>>>(prm); break;
+  const int nw = proposals == 1 ? 0 : n_words;
+  if constexpr (std::is_same<T, double>::value) {
+    const int bytes = short_prefix(prm, 16, 16);
+    switch (nw) {
+      case 0: return launch_tiled(roll_apply_kernel_tiled<0>, prm, bytes, st);
+      case 1: return launch_tiled(roll_apply_kernel_tiled<1>, prm, bytes, st);
+      case 2: return launch_tiled(roll_apply_kernel_tiled<2>, prm, bytes, st);
+      case 3: return launch_tiled(roll_apply_kernel_tiled<3>, prm, bytes, st);
+      default: return launch_tiled(roll_apply_kernel_tiled<4>, prm, bytes, st);
+    }
+  } else {
+    const int blocks = (S + kThreads - 1) / kThreads;
+    switch (nw) {
+      case 0: roll_apply_kernel<T, 0><<<blocks, kThreads, 0, st>>>(prm); break;
+      case 1: roll_apply_kernel<T, 1><<<blocks, kThreads, 0, st>>>(prm); break;
+      case 2: roll_apply_kernel<T, 2><<<blocks, kThreads, 0, st>>>(prm); break;
+      case 3: roll_apply_kernel<T, 3><<<blocks, kThreads, 0, st>>>(prm); break;
+      default: roll_apply_kernel<T, 4><<<blocks, kThreads, 0, st>>>(prm); break;
+    }
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
-void launch_nd(const RollParams<T>& prm, int blocks, cudaStream_t st) {
-  switch (prm.proposals == 1 ? 0 : prm.n_words) {
-    case 0: roll_apply_nd_kernel<T, D, 0><<<blocks, kThreadsNd, 0, st>>>(prm); break;
-    case 1: roll_apply_nd_kernel<T, D, 1><<<blocks, kThreadsNd, 0, st>>>(prm); break;
-    case 2: roll_apply_nd_kernel<T, D, 2><<<blocks, kThreadsNd, 0, st>>>(prm); break;
-    case 3: roll_apply_nd_kernel<T, D, 3><<<blocks, kThreadsNd, 0, st>>>(prm); break;
-    default: roll_apply_nd_kernel<T, D, 4><<<blocks, kThreadsNd, 0, st>>>(prm); break;
+int launch_nd(RollParams<T>& prm, cudaStream_t st) {
+  const int nw = prm.proposals == 1 ? 0 : prm.n_words;
+  if constexpr (std::is_same<T, double>::value) {
+    const int bytes = short_prefix(prm, 8 * padded_doubles(D + 1), 8);
+    switch (nw) {
+      case 0: return launch_tiled(roll_apply_nd_kernel_tiled<D, 0>, prm, bytes, st);
+      case 1: return launch_tiled(roll_apply_nd_kernel_tiled<D, 1>, prm, bytes, st);
+      case 2: return launch_tiled(roll_apply_nd_kernel_tiled<D, 2>, prm, bytes, st);
+      case 3: return launch_tiled(roll_apply_nd_kernel_tiled<D, 3>, prm, bytes, st);
+      default: return launch_tiled(roll_apply_nd_kernel_tiled<D, 4>, prm, bytes, st);
+    }
+  } else {
+    const int blocks = (prm.S + kThreadsNd - 1) / kThreadsNd;
+    switch (nw) {
+      case 0: roll_apply_nd_kernel<T, D, 0><<<blocks, kThreadsNd, 0, st>>>(prm); break;
+      case 1: roll_apply_nd_kernel<T, D, 1><<<blocks, kThreadsNd, 0, st>>>(prm); break;
+      case 2: roll_apply_nd_kernel<T, D, 2><<<blocks, kThreadsNd, 0, st>>>(prm); break;
+      case 3: roll_apply_nd_kernel<T, D, 3><<<blocks, kThreadsNd, 0, st>>>(prm); break;
+      default: roll_apply_nd_kernel<T, D, 4><<<blocks, kThreadsNd, 0, st>>>(prm); break;
+    }
+    return static_cast<int>(cudaGetLastError());
   }
 }
 
@@ -442,19 +1059,17 @@ int roll_nd(int device, const T* my_pos, const T* my_c, int D,
   if (err != 0) return err;
   prm.lane0 = lane0;
   prm.cs = cs;
-  const int blocks = (S + kThreadsNd - 1) / kThreadsNd;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 1: launch_nd<T, 1>(prm, blocks, st); break;
-    case 2: launch_nd<T, 2>(prm, blocks, st); break;
-    case 3: launch_nd<T, 3>(prm, blocks, st); break;
-    case 4: launch_nd<T, 4>(prm, blocks, st); break;
-    case 5: launch_nd<T, 5>(prm, blocks, st); break;
-    case 6: launch_nd<T, 6>(prm, blocks, st); break;
-    case 7: launch_nd<T, 7>(prm, blocks, st); break;
-    default: launch_nd<T, 8>(prm, blocks, st); break;
+    case 1: return launch_nd<T, 1>(prm, st);
+    case 2: return launch_nd<T, 2>(prm, st);
+    case 3: return launch_nd<T, 3>(prm, st);
+    case 4: return launch_nd<T, 4>(prm, st);
+    case 5: return launch_nd<T, 5>(prm, st);
+    case 6: return launch_nd<T, 6>(prm, st);
+    case 7: return launch_nd<T, 7>(prm, st);
+    default: return launch_nd<T, 8>(prm, st);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

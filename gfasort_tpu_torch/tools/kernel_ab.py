@@ -1,6 +1,6 @@
 """Time the port's kernels beside earlier builds of their sources.
 
-    python -m gfasort_tpu_torch.tools.kernel_ab OLD_DIR [OLD_DIR ...]
+    python -m gfasort_tpu_torch.tools.kernel_ab [--split K] OLD_DIR [OLD_DIR ...]
 
 Each ``OLD_DIR`` holds earlier versions of some of ``bucket_apply.cu``,
 ``dense_apply_nd.cu``, ``sweep_apply.cu``, ``sweep_sampler.cu`` and
@@ -22,7 +22,10 @@ kernel's at f32 and f64); the roll kernels' of ``bench_util.roll_cases``
 (1D at P = 12, 2D at P = 8 and 3D at P = 4 on plan phases 0 and 1 and
 on phase 0 all rolled; the P = 5 edge with far buckets at ki = 0 in 1D,
 2D and 3D; 3D phase 1 at P = 8; and, where a build holds the f64 entry
-points, the f64 cases).  A kind whose C entry point a build lacks is not
+points, the f64 cases; with ``--split K`` each f64 roll case also on its
+buckets with k <= K alone and on the rest alone, then on no bucket: the
+cost of the short and the long buckets and of the loads and the
+combine).  A kind whose C entry point a build lacks is not
 run for that build.  In every
 case every build must equal the plain version bit for bit; each is then
 timed in turns (the old builds in order, the current one twice, the old
@@ -208,9 +211,9 @@ def sass_rows(lib_path, kinds) -> dict:
     return rows
 
 
-def cases(dev, kinds):
+def cases(dev, kinds, split=None):
     """(description, kind, inputs, timed) of every case of the given
-    kinds, one at a time."""
+    kinds, one at a time; ``split`` as ``--split``."""
     bench = synthetic_path_index(*BENCH_SHAPE, seed=0)
     S = bench.total_steps
     pos_np = bench.step_pos.astype(np.float32)
@@ -268,13 +271,24 @@ def cases(dev, kinds):
                             f64=bool(kinds & {"roll_f64", "roll_nd_f64"})):
             kind = (("roll" if c["dims"] == 1 else "roll_nd")
                     + ("_f64" if c["dtype"] == "float64" else ""))
-            if kind in kinds:
+            if kind not in kinds:
+                continue
+            subsets = [("", c["rb"])]
+            if split is not None and c["dtype"] == "float64":
+                subsets += [(":short", tuple(b for b in c["rb"]
+                                             if b[0] <= split)),
+                            (":long", tuple(b for b in c["rb"]
+                                            if b[0] > split)),
+                            (":none", ())]
+            at = 4 if c["dims"] == 1 else 6   # the buckets in args
+            for tag, rb in subsets:
+                args = c["args"][:at] + (rb,) + c["args"][at + 1:]
                 yield (dict(kernel=c["kernel"], dims=c["dims"], S=S,
                             dtype=c["dtype"],
-                            phase_of_plan=c["phase_of_plan"], P=c["P"],
-                            kernel_buckets=len(c["kb"]),
-                            roll_buckets=[list(b) for b in c["rb"]]),
-                       kind, c["args"], True)
+                            phase_of_plan=f"{c['phase_of_plan']}{tag}",
+                            P=c["P"], kernel_buckets=len(c["kb"]),
+                            roll_buckets=[list(b) for b in rb]),
+                       kind, args, True)
 
 
 def _sampler_cuda(consts, key_words, cooling, rank, cnt, frac, snap, rng,
@@ -306,6 +320,9 @@ def _flat(out) -> list:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    split = None
+    if argv[:1] == ["--split"]:
+        split, argv = int(argv[1]), argv[2:]
     if not argv or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
@@ -343,7 +360,7 @@ def main(argv=None) -> int:
               "roll_nd": (kernels.roll_apply_nd_cuda, roll_apply_nd_ref),
               "roll_f64": (kernels.roll_apply_cuda, roll_apply_ref),
               "roll_nd_f64": (kernels.roll_apply_nd_cuda, roll_apply_nd_ref)}
-    for desc, kind, args, timed in cases(dev, kinds):
+    for desc, kind, args, timed in cases(dev, kinds, split):
         run, ref = launch[kind]
         builds = {label: entries[kind] for label, entries in olds.items()
                   if kind in entries}

@@ -921,3 +921,37 @@ def test_roll_apply_f64_kernel_matches_plain_version(cuda, case):
         torch.cuda.synchronize()
         assert roll_apply_nd.launches == before + 1
         assert out.dtype == torch.float64 and torch.equal(out, ref)
+
+
+# S below, at and past one tile of the f64 kernels (128 steps) and its
+# halos (64 steps on each side; S < 256 takes the kernels' general wrap
+# rule); k below, at and past the short limit (64), a short bucket after
+# a long one (the long path), k >= S (short where S <= 64), the
+# wrap-around pairs; D up to 8 (past 48 KB of shared memory)
+TILED_SIZES = [5, 100, 200, 777, 1300, 4099]
+
+
+@pytest.mark.parametrize("S", TILED_SIZES)
+@pytest.mark.parametrize("P", [1, 5, 12, 16])
+def test_roll_apply_f64_tiles(cuda, S, P):
+    from gfasort_tpu_torch.ops.roll_apply import (roll_apply, roll_apply_nd,
+                                                  roll_apply_nd_ref,
+                                                  roll_apply_ref)
+
+    rb = [(1, 0), (2, 1), (64, 2), (63, 3), (65, 4), (3, 5), (S + 2, 6),
+          (2 * S + 1, 7)]
+    rng = np.random.default_rng(S + 100 * P)
+    xs, pos, words = _roll_case(rng, S, rb, P)
+    xs, pos = xs.double().to(cuda), pos.double().to(cuda)
+    words = [w.to(cuda) for w in words]
+    out = roll_apply(xs, pos, words, 0.37, rb, P)
+    assert torch.equal(out, roll_apply_ref(xs, pos, words, 0.37, rb, P))
+    for D in range(1, 9):
+        cs, pos, words = _roll_case(rng, S, rb, P, D)
+        cs, pos = cs.double().to(cuda), pos.double().to(cuda)
+        words = [w.to(cuda) for w in words]
+        lane0 = torch.from_numpy(rng.integers(0, 2, S).astype(bool)).to(cuda)
+        my_pos = torch.where(lane0, pos, pos + 3.0)
+        my_c = torch.where(lane0, cs[:D], cs[D:]).contiguous()
+        args = (my_pos, my_c, lane0, cs, words, 0.37, rb, P)
+        assert torch.equal(roll_apply_nd(*args), roll_apply_nd_ref(*args)), D

@@ -20,7 +20,12 @@ tests/test_torch_sweep_nd.py.  The kernel itself runs only on the card
 
 The same models run in double for the f64 route, where every bucket of
 a phase is a roll bucket: the ops in the same order, the constants and
-eta in f64, and the nD 1 / sqrt correctly rounded in f64."""
+eta in f64, and the nD 1 / sqrt correctly rounded in f64.  The f64
+kernels evaluate each pair of a short bucket once, from a staged tile:
+``model_roll_1d_tiled`` / ``model_roll_nd_tiled`` model that order with
+small tiles and short limits and are held to the plain versions through
+an int64 view; ``test_pair_identities`` holds the identities it rests
+on."""
 
 from dataclasses import replace
 
@@ -656,3 +661,259 @@ def test_sample_words_dispatch_threefry(workload, monkeypatch, tmp_path,
         tsc.sample_words(fake, rows, True, rank.as_subclass(_FakeCuda),
                          cnt.as_subclass(_FakeCuda), 0.6, "down", rng)
     assert tsc.sample_words.launches == before
+
+
+# ---- the f64 kernels' tiles: each short-offset pair evaluated once --------
+#
+# The f64 kernels (roll_apply_kernel_tiled, roll_apply_nd_kernel_tiled)
+# give a block the steps [t0, t0 + T) and run the leading buckets with
+# k <= KT (the short prefix) from shared memory: the steps
+# [t0 - h, t0 + T + h), each taken mod S (h: the prefix's largest k), are
+# staged once; per short bucket, pair j in [0, T + k) (ends a = t0 + j - k
+# and a + k, staged at h - k + j and h + j) is evaluated once into a
+# table, both ends' weights (the wrap guard a mod S < S - k is the same at
+# both ends) and, in 1D, both ends' updates; in nD its r and whether
+# mag^2 == 0, step t then forming its own delta.  Step t takes pair
+# t - t0 + k's first end and pair t - t0's second, and the long buckets
+# follow as in the f32 kernels.  The kernels run T = 128, KT = 64; the
+# model takes both as parameters.
+
+
+def _short_prefix(buckets, KT):
+    n = 0
+    while n < len(buckets) and buckets[n][0] <= KT:
+        n += 1
+    return n, max((k for k, _ in buckets[:n]), default=0)
+
+
+def _pair_weights(sw, la, lb, P, ki, guard):
+    """Both ends' weights of the pairs (la, lb) from the staged words:
+    end a counts the proposals whose field at a is ki or, where the
+    guard holds, whose field at b is ~ki; end b the converse."""
+    if P == 1:
+        a, b = sw[0][la] == ki, sw[0][lb] == ~ki
+        return (a | (guard & b)).astype(np.int64), (b | (guard & a)).astype(np.int64)
+    nw = len(sw)
+    last_live = U32(0x80808080) >> U32(8 * (4 - (P - 4 * (nw - 1))))
+    plus, minus = U32((ki & 0xFF) * 0x01010101), U32((~ki & 0xFF) * 0x01010101)
+    ma = np.zeros(len(la), U32)
+    mb = np.zeros(len(la), U32)
+    for i, w in enumerate(sw):
+        w = w.view(U32)
+        live = last_live if i == nw - 1 else U32(0x80808080)
+        ma |= _eq_fields(w[la], plus, live) >> U32(i)
+        mb |= _eq_fields(w[lb], minus, live) >> U32(i)
+    g = np.where(guard, U32(0xFFFFFFFF), U32(0))
+    return (np.bitwise_count(ma | (mb & g)).astype(np.int64),
+            np.bitwise_count(mb | (ma & g)).astype(np.int64))
+
+
+def _tile_pairs(S, t0, T, h, k, ki, sw, sp, P, fast):
+    """The short bucket (k, ki)'s pairs of the tile at t0: staged ends,
+    both ends' weights (0 where d == 0), valid, safe and mu.  The guard
+    as the kernels take it: where S >= T + 2 KT (``fast``) the pair (a,
+    a + k) wraps exactly where a < 0 or a + k >= S (a >= S only for
+    pairs no step in [0, S) takes), else a mod S < S - k."""
+    j = np.arange(T + k)
+    la, lb = h - k + j, h + j
+    a = t0 + j - k
+    guard = ((a >= 0) & (a + k < S) if fast
+             else np.mod(a, S) < (S - k if k < S else 0))
+    na, nb = _pair_weights(sw, la, lb, P, ki, guard)
+    d = np.abs(sp[la] - sp[lb])
+    valid = d != 0
+    safe = np.where(valid, d, 1.0)
+    mu = np.minimum(F64(ETA) / safe, 1.0)
+    return (la, lb, np.where(valid, na, 0).astype(F64),
+            np.where(valid, nb, 0).astype(F64), safe, mu)
+
+
+def model_roll_1d_tiled(xs, pos, words, buckets, P, T, KT):
+    """The f64 1D kernel with tiles of T steps and short offsets
+    k <= KT: the short prefix from the staged tiles, then the long
+    buckets and the combine (``model_roll_1d``)."""
+    S = len(xs)
+    ns, h = _short_prefix(buckets, KT)
+    dsum, csum = np.zeros(S), np.zeros(S)
+    for t0 in range(0, S, T):
+        g = np.mod(np.arange(t0 - h, t0 + T + h), S)
+        sx, sp, sw = xs[g], pos[g], [w[g] for w in words]
+        tl = np.arange(min(T, S - t0))   # the tile's steps in [0, S)
+        ds, cs_ = dsum[t0:t0 + T], csum[t0:t0 + T]
+        for k, ki in buckets[:ns]:
+            la, lb, wa, wb, safe, mu = _tile_pairs(S, t0, T, h, k, ki, sw,
+                                                   sp, P, S >= T + 2 * KT)
+            dxa, dxb = sx[la] - sx[lb], sx[lb] - sx[la]
+            dxa = np.where(dxa == 0, 1e-9, dxa)
+            dxb = np.where(dxb == 0, 1e-9, dxb)
+            q = mu * (np.abs(dxa) - safe)
+            ua = (-wa) * (q * np.where(dxa >= 0, 0.5, -0.5))
+            ub = (-wb) * (q * np.where(dxb >= 0, 0.5, -0.5))
+            ds[:] = (ds + ua[tl + k]) + ub[tl]
+            cs_[:] = (cs_ + wa[tl + k]) + wb[tl]
+    return model_roll_1d(xs, pos, words, buckets[ns:], P, dsum, csum)
+
+
+def model_roll_nd_tiled(my_pos, my_c, lane0, cs, words, buckets, P, T, KT):
+    """The nD twin: the pair table holds r and mag^2 == 0; step t forms
+    its own delta to the staged partner."""
+    D, S = my_c.shape
+    ns, h = _short_prefix(buckets, KT)
+    acc, wacc = np.zeros((D, S)), np.zeros(S)
+    for t0 in range(0, S, T):
+        g = np.mod(np.arange(t0 - h, t0 + T + h), S)
+        sc, sp, sw = my_c[:, g], my_pos[g], [w[g] for w in words]
+        tl = np.arange(min(T, S - t0))
+        c = sc[:, h + tl]
+        ac, wc = acc[:, t0:t0 + T], wacc[t0:t0 + T]
+        for k, ki in buckets[:ns]:
+            la, lb, wa, wb, safe, mu = _tile_pairs(S, t0, T, h, k, ki, sw,
+                                                   sp, P, S >= T + 2 * KT)
+            delta = sc[:, la] - sc[:, lb]
+            mag2 = delta[0] * delta[0]
+            for d in range(1, D):
+                mag2 = mag2 + delta[d] * delta[d]
+            zero = mag2 == 0
+            mag2 = np.where(zero, 1e-18, mag2)
+            inv = 1.0 / np.sqrt(mag2)
+            r = ((mu * (mag2 * inv - safe)) * 0.5) * inv
+            r = np.where(r > 1e30, 1e30, r)
+            d1 = c - sc[:, h + tl + k]
+            d2 = c - sc[:, h + tl - k]
+            d1[0] = np.where(zero[tl + k], 1e-9, d1[0])
+            d2[0] = np.where(zero[tl], 1e-9, d2[0])
+            w1, w2 = wa[tl + k], wb[tl]
+            u1 = -(w1 * r[tl + k]) * d1
+            u2 = -(w2 * r[tl]) * d2
+            ac[:] = (ac + u1) + u2
+            wc[:] = (wc + w1) + w2
+    return model_roll_nd(my_pos, my_c, lane0, cs, words, buckets[ns:], P,
+                         acc, wacc)
+
+
+def _tiled_buckets(S, KT):
+    """k < KT, k = KT and k > KT; a short bucket after a long one (it
+    runs on the long path); k >= S, short where S <= KT."""
+    return ((1, 0), (2, 1), (KT, 2), (KT - 1, 3), (KT + 1, 4), (3, 5),
+            (S + 2, 6), (2 * S + 1, 7))
+
+
+# (S, P): S not a multiple of T; S < T + 2 KT (and < KT: short k >= S);
+# a multiple of T; the P = 1 raw choices and P = 5's unused fields
+TILED_CASES = [(T, KT, S, P)
+               for T, KT in ((8, 4), (16, 8), (8, 8), (16, 4))
+               for S, P in ((37, 12), (5, 1), (23, 5), (64, 8))]
+
+
+def _tiled_state(rng, S, D=None):
+    """f64 state with repeated xs / coordinates (dx == 0, mag^2 == 0)
+    and positions (d == 0)."""
+    pos = np.cumsum(rng.integers(0, 3, S)).astype(F64)
+    if D is None:
+        xs = rng.standard_normal(S) * 100
+        xs[rng.integers(0, S, max(S // 4, 1))] = 5.0
+        return xs, pos
+    cs = rng.standard_normal((2 * D, S)) * 50
+    cs[:, rng.integers(0, S, max(S // 4, 1))] = 2.0
+    return cs, pos
+
+
+@pytest.mark.parametrize("T,KT,S,P", TILED_CASES)
+def test_tiled_model_equals_roll_apply_ref_1d_f64(T, KT, S, P):
+    rng = np.random.default_rng(S * T + KT + P)
+    buckets = _tiled_buckets(S, KT)
+    xs, pos = _tiled_state(rng, S)
+    w = _random_words(rng, S, buckets, P)
+    want = roll_apply_ref(torch.from_numpy(xs), torch.from_numpy(pos),
+                          [torch.from_numpy(x) for x in w], ETA, buckets, P)
+    got = model_roll_1d_tiled(xs, pos, w, buckets, P, T, KT)
+    np.testing.assert_array_equal(got.view(np.int64),
+                                  want.numpy().view(np.int64))
+
+
+def _nd_tiled_case(rng, S, D, buckets, P, inf_at=None):
+    cs, pos = _tiled_state(rng, S, D)
+    if inf_at is not None:   # r is NaN there: it passes the 1e30 clamp
+        cs[:, inf_at] = np.inf
+    lane0 = rng.integers(0, 2, S).astype(bool)
+    my_pos = pos + np.where(lane0, 0.0, 3.0)
+    my_c = np.ascontiguousarray(np.where(lane0, cs[:D], cs[D:]))
+    return my_pos, my_c, lane0, cs, _random_words(rng, S, buckets, P)
+
+
+@pytest.mark.parametrize("D", [2, 3])
+@pytest.mark.parametrize("T,KT,S,P", TILED_CASES)
+def test_tiled_model_equals_roll_apply_nd_ref_f64(T, KT, S, P, D):
+    """In 2D and 3D; at S = 37 one step's coordinates are infinite, so
+    that its pairs' r is NaN and passes the clamp at 1e30, as the plain
+    version's ``clamp_max`` passes it (a finite r stays below 1)."""
+    rng = np.random.default_rng(S * T + KT + P + D)
+    buckets = _tiled_buckets(S, KT)
+    args = _nd_tiled_case(rng, S, D, buckets, P,
+                          inf_at=S // 2 if S == 37 else None)
+    want = roll_apply_nd_ref(*(torch.from_numpy(a) for a in args[:4]),
+                             [torch.from_numpy(x) for x in args[4]], ETA,
+                             buckets, P)
+    with np.errstate(invalid="ignore"):   # inf * 0 at the infinite step
+        got = model_roll_nd_tiled(*args, buckets, P, T, KT)
+    assert np.isnan(got).any() == (S == 37)
+    np.testing.assert_array_equal(got.view(np.int64),
+                                  want.numpy().view(np.int64))
+
+
+@pytest.mark.parametrize("dims", [1, 2, 3])
+def test_pair_identities(dims):
+    """Every pair (t, t + k mod S) of a random case, evaluated from each
+    end as the f32 kernels and the plain versions evaluate it: 1D r' =
+    -r except where dx == 0 (both ends 1e-9, r' = r); nD r' = r and
+    delta' = -delta except delta[0] where mag^2 == 0 (both ends 1e-9),
+    so that with equal weights upd' = -upd but for that component."""
+    rng = np.random.default_rng(70 + dims)
+    S = 2000
+    state, pos = _tiled_state(rng, S, None if dims == 1 else dims)
+    t = np.arange(S)
+    seen_tie = False
+    for k in (1, 2, 7, 150, S - 1, S + 3):
+        b = (t + k) % S
+        d = np.abs(pos[t] - pos[b])
+        assert (d == np.abs(pos[b] - pos[t])).all()
+        safe = np.where(d != 0, d, 1.0)
+        mu = np.minimum(F64(ETA) / safe, 1.0)
+        if dims == 1:
+            def r_of(a, o):
+                dx = state[a] - state[o]
+                dx = np.where(dx == 0, 1e-9, dx)
+                return (mu * (np.abs(dx) - safe)) * np.where(dx >= 0, 0.5,
+                                                             -0.5)
+            ra, rb = r_of(t, b), r_of(b, t)
+            tie = state[t] == state[b]
+            np.testing.assert_array_equal(rb[~tie], -ra[~tie])
+            np.testing.assert_array_equal(rb[tie], ra[tie])
+            seen_tie |= tie.any()
+            continue
+        c = state[:dims]
+
+        def end(a, o):
+            delta = c[:, a] - c[:, o]
+            mag2 = delta[0] * delta[0]
+            for i in range(1, dims):
+                mag2 = mag2 + delta[i] * delta[i]
+            zero = mag2 == 0
+            delta[0] = np.where(zero, 1e-9, delta[0])
+            mag2 = np.where(zero, 1e-18, mag2)
+            inv = 1.0 / np.sqrt(mag2)
+            r = ((mu * (mag2 * inv - safe)) * 0.5) * inv
+            r = np.where(r > 1e30, 1e30, r)
+            return r, delta, zero, (-(1.0 * r)) * delta
+        ra, da, za, ua = end(t, b)
+        rb, db, zb, ub = end(b, t)
+        np.testing.assert_array_equal(ra.view(np.int64), rb.view(np.int64))
+        np.testing.assert_array_equal(za, zb)
+        np.testing.assert_array_equal(db[1:], -da[1:])
+        np.testing.assert_array_equal(db[0][~za], -da[0][~za])
+        np.testing.assert_array_equal(db[0][za], da[0][za])
+        np.testing.assert_array_equal(ub[1:], -ua[1:])
+        np.testing.assert_array_equal(ub[0][~za], -ua[0][~za])
+        np.testing.assert_array_equal(ub[0][za], ua[0][za])
+        seen_tie |= za.any()
+    assert seen_tie
