@@ -29,10 +29,16 @@ script's seconds so far:
                 version; kernel, plain version and the port's split
                 apply of the same offsets (bucket kernel + roll passes +
                 combine) timed.
-5. shift_probe — both shift-sum kernels (global reads, shared-memory
-                halo) bit-identical to their plain version, conv1d within
+5. shift_probe — both shift-sum kernels (warp shuffles, a tile staged
+                in shared memory) bit-identical to their plain version,
+                on the probe's input and on every edge case of
+                ``dense_probe.edge_cases`` (every halo, views 0-3
+                elements past a 16-byte boundary, S = 0-3 mod 4, -0.0,
+                +-inf and NaN; NaN compared bit for bit), conv1d within
                 atol 1e-4, all timed (``tools/dense_probe.run``) at
-                S = 4M and at S = 64M, past the 50 MB L2.
+                S = 4M and at S = 64M, past the 50 MB L2: back to back
+                through the wrapper (``ms``) and on the device alone
+                (``device_ms``, L2 cold; ``device_warm_ms``).
 6. main       — write the bench-shape GFA (1M nodes, 16 paths x 250k
                 steps) and run ``python -m gfasort_tpu_torch -p sYgs``
                 (engine auto -> the sweep engine, N > 200k) through
@@ -591,16 +597,19 @@ def phase_sweep_apply(plan, pidx, card_line):
 
 
 def phase_shift_probe(card_line):
-    """Both shift-sum kernels checked and timed by the probe tool at each
-    of ``SHIFT_SIZES``; the launches are those of the first size's
-    checked calls."""
+    """Both shift-sum kernels checked (the probe's input and its edge
+    cases) and timed by the probe tool at each of ``SHIFT_SIZES``; the
+    launches are those of the first size's checked calls.  Each
+    variant's share of the bound is taken from its device-only time."""
     from gfasort_tpu_torch.tools import dense_probe
 
     results = {}
     for S in SHIFT_SIZES:
         reset_launches()
-        res = dense_probe.run(S, "cuda")
+        res = dense_probe.run(S, "cuda", edges=True)
         res.update(bound_fields(S, 1, 1, (2 * res["halo"], 0, 0)))
+        for r in res["variants"].values():
+            r["device_share"] = res["bound_ms"] / r["device_ms"]
         if any(n < 1 for n in res["launches"].values()):
             raise AssertionError(f"a shift-sum kernel never launched: "
                                  f"{res['launches']}")
@@ -2216,7 +2225,7 @@ def shift_entry(variant, probe):
     case = dict(res["variants"][variant], plain_ms=res["plain_ms"],
                 bound_ms=res["bound_ms"], bound_by=res["bound_by"],
                 bound_pipe=res["bound_pipe"])
-    return kernel_entry(
+    entry = kernel_entry(
         f"shift_sum_{variant}", "gfasort_tpu_torch/csrc/shift_sum.cu",
         "scratch/dense_probe.py:81, scratch/dense_probe.py:116, "
         "scratch/dense_probe.py:152",
@@ -2224,8 +2233,13 @@ def shift_entry(variant, probe):
         {S: r["variants"][variant] for S, r in probe.items()}, case,
         library_ms=res["library_ms"],
         note="no main path runs it: launches counted in the shift_probe "
-             "phase's checked calls; library_ms is conv1d with a ones "
-             "filter, TF32 off")
+             "phase's checked calls (the probe's input and its edge "
+             "cases); ms: back to back through the wrapper, the host's "
+             "launch path at this size; device_ms: the device alone, L2 "
+             "cold; library_ms is conv1d with a ones filter, TF32 off")
+    entry["device_ms"] = case["device_ms"]
+    entry["library_device_ms"] = res["library_device_ms"]
+    return entry
 
 
 def main() -> int:

@@ -14,7 +14,9 @@ holds a measured rate against the H100 peaks (``HBM_BYTES_S``,
 ``chip_smoke.bound_ms``); ``bench_native_1d`` and ``bench_native_1d_mt`` time the
 C++ oracle's loop on the host; ``sweep_quality_vs_oracle`` and
 ``layout_quality_vs_oracle`` certify the sweep engines against the C++
-oracle.  ``gather_consensus_ms`` and ``cuda_ms`` time device work;
+oracle.  ``gather_consensus_ms`` and ``cuda_ms`` time device work
+(``cuda_ms`` back to back, host launch path included), ``device_ms``
+the device alone;
 ``BENCH_SHAPE``, ``contract_choices`` and ``bench_layout_coords`` make
 the bucket kernels' inputs of ``chip_smoke.py`` and
 ``tools/kernel_ab.py``, ``fused_cases`` the fused sweep apply's and
@@ -40,7 +42,7 @@ __all__ = ["synthetic_path_index", "shuffled_path_index", "rank_quality",
            "roofline_model",
            "measure_applied_frac", "bench_native_1d", "bench_native_1d_mt",
            "sweep_quality_vs_oracle", "layout_quality_vs_oracle",
-           "gather_consensus_ms", "cuda_ms", "BENCH_SHAPE",
+           "gather_consensus_ms", "cuda_ms", "device_ms", "BENCH_SHAPE",
            "contract_choices", "bench_layout_coords", "fused_cases",
            "edge_phase", "sampler_cases", "roll_cases"]
 
@@ -686,6 +688,63 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# cycles of ``torch.cuda._sleep`` ahead of each ``device_ms`` window:
+# ~1 ms at the H100's 1,980 MHz, far longer than the host takes to
+# enqueue one window's calls
+SLEEP_CYCLES = 2_000_000
+# bytes read ahead of a cold ``device_ms`` window: five times the H100's
+# 50 MB L2, which then holds none of the timed call's data and no dirty
+# line to write back during it
+FLUSH_BYTES = 256 << 20
+# back-to-back calls in a warm ``device_ms`` window
+WARM_CALLS = 20
+
+
+def device_ms(fn, reps: int = 20, warm: bool = False) -> float:
+    """Median device milliseconds of one call of ``fn``, the host's
+    launch path left out.  In each of ``reps`` windows the stream first
+    sleeps (``torch.cuda._sleep``) while the host enqueues the rest:
+    cold, a read of ``FLUSH_BYTES``, then two CUDA events around one
+    call; warm, one call, then two events around ``WARM_CALLS`` calls
+    back to back (their inputs L2-resident where they fit).  A window
+    counts only where the stream had not reached an event enqueued just
+    before the timed calls by the time the host had enqueued them all,
+    so no host gap lies between the events; otherwise the sleep doubles
+    and the window is taken again (raises after six doublings)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    flush = None if warm else torch.ones(FLUSH_BYTES // 4, device="cuda")
+    calls = WARM_CALLS if warm else 1
+    cycles, ms = SLEEP_CYCLES, []
+    while len(ms) < reps:
+        guard = torch.cuda.Event()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        if warm:
+            fn()
+        else:
+            flush.sum()
+        guard.record()
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        gap = guard.query()   # the stream caught up with the host
+        torch.cuda.synchronize()
+        if gap:
+            cycles *= 2
+            if cycles > SLEEP_CYCLES << 6:
+                raise RuntimeError("device_ms: the host could not enqueue "
+                                   "a window within the sleep")
+            continue
+        ms.append(start.elapsed_time(end) / calls)
+    return float(np.median(ms))
 
 
 def contract_choices(rng, S, buckets, P):

@@ -173,6 +173,7 @@ _ARGTYPES = {
     "gfasort_sweep_apply": [_CI, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CF, _IP,
                             _CI, _VP, _VP],
     "gfasort_shift_sum": [_CI, _VP, _VP, _CI, _CI, _CI, _VP],
+    "gfasort_shift_sum_outputs_per_pass": [_CI],
     "gfasort_sweep_sampler": [_CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP, _VP,
                               _CI, _CI, _CI, _CI, _CI, _CI, _UP, _UP,
                               _VP, _VP, _VP, _VP, _VP, _VP],
@@ -284,16 +285,17 @@ def sweep_apply_cuda(xs_pad, pos_pad, sidx_pad, rank, cnt, eta: float, offs,
     return out
 
 
-def shift_sum_cuda(x, halo: int, variant: str):
+def shift_sum_cuda(x, halo: int, variant: str, entry=None):
     """Launch a shift-sum kernel (``variant`` "global" or "smem") on the
     current stream.  Inputs are validated by the caller
-    (``ops/shift_sum.shift_sum``)."""
-    lib = library()
+    (``ops/shift_sum.shift_sum``); ``x`` may start at any element of its
+    storage, the output is a new (aligned) tensor.  ``entry`` as in
+    :func:`bucket_apply_cuda`."""
+    entry = entry or library().gfasort_shift_sum
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.gfasort_shift_sum(
-        x.device.index, x.data_ptr(), out.data_ptr(), x.shape[0], halo,
-        1 if variant == "smem" else 0, stream)
+    err = entry(x.device.index, x.data_ptr(), out.data_ptr(), x.shape[0],
+                halo, 1 if variant == "smem" else 0, stream)
     if err != 0:
         raise RuntimeError(f"shift_sum kernel launch failed: CUDA error {err}")
     return out

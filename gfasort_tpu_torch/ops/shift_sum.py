@@ -9,11 +9,14 @@ those mechanisms and computes the sum with zero-padded edges, the form
 of ``pallas_dma`` (the other two wrapped inside each 64k block).
 
 On a CUDA tensor :func:`shift_sum` launches one of two hand-written
-kernels of ``csrc/shift_sum.cu``: ``"global"`` (one thread per element,
-every term loaded from global memory) or ``"smem"`` (a block stages its
-tile plus the halo in shared memory).  On a CPU tensor it runs
-:func:`shift_sum_ref`.  ``tools/dense_probe.py`` times the two beside
-each other.
+kernels of ``csrc/shift_sum.cu``: ``"global"`` (a thread loads one
+16-byte vector and takes its neighbours' elements from the other lanes
+of its warp by shuffles) or ``"smem"`` (a persistent grid stages tiles
+plus their halo in a shared-memory ring by asynchronous copies).  Both
+take any contiguous f32 [S], a view that starts off a 16-byte boundary
+included, and equal :func:`shift_sum_ref` bit for bit.  On a CPU tensor
+it runs :func:`shift_sum_ref`.  ``tools/dense_probe.py`` times the two
+beside each other.
 """
 
 from __future__ import annotations

@@ -3,9 +3,9 @@
     python -m gfasort_tpu_torch.tools.kernel_ab [--split K] OLD_DIR [OLD_DIR ...]
 
 Each ``OLD_DIR`` holds earlier versions of some of ``bucket_apply.cu``,
-``dense_apply_nd.cu``, ``sweep_apply.cu``, ``sweep_sampler.cu`` and
-``roll_apply.cu`` with the same C interfaces, for example a parent
-commit's (``git show REV:gfasort_tpu_torch/csrc/sweep_sampler.cu``) or a
+``dense_apply_nd.cu``, ``sweep_apply.cu``, ``sweep_sampler.cu``,
+``roll_apply.cu`` and ``shift_sum.cu`` with the same C interfaces, for
+example a parent commit's (``git show REV:gfasort_tpu_torch/csrc/sweep_sampler.cu``) or a
 variant of the current source.  nvcc builds the sources each one holds
 with the port's flags into ``OLD_DIR/_build``, their C entry points
 renamed so that every build loads into one process.  A kernel is run
@@ -25,14 +25,19 @@ on phase 0 all rolled; the P = 5 edge with far buckets at ki = 0 in 1D,
 points, the f64 cases; with ``--split K`` each f64 roll case also on its
 buckets with k <= K alone and on the rest alone, then on no bucket: the
 cost of the short and the long buckets and of the loads and the
-combine).  A kind whose C entry point a build lacks is not
-run for that build.  In every
+combine); and the shift sums' (``shift``: both variants at halo 8 on
+S = 2^22 and 2^26 timed, and untimed every case of
+``dense_probe.edge_cases`` at S = 1, 3, 1000, 70,001, 196,608 and
+2^22, held bit for bit, NaN included).  A kind whose C entry point a
+build lacks is not run for that build.  In every
 case every build must equal the plain version bit for bit; each is then
 timed in turns (the old builds in order, the current one twice, the old
-ones in reverse) with CUDA events.  Prints each build's seconds, its
-ptxas report and the static SASS opcode mix of the kernels it runs
-(:func:`sass_mix`), one JSON line per timed case and the card line;
-needs a CUDA device.
+ones in reverse) with CUDA events around back-to-back calls
+(``cuda_ms``); the shift sums also on the device alone, L2 cold
+(``device_ms``, the times compared), and warm.  Prints each build's
+seconds, its ptxas report and the static SASS opcode mix of the kernels
+it runs (:func:`sass_mix`; for the shift sums also per output), one JSON
+line per timed case and the card line; needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -52,14 +57,17 @@ import torch
 
 from .. import kernels
 from ..bench_util import (BENCH_SHAPE, SAMPLER_ROUTES, bench_layout_coords,
-                          contract_choices, cuda_ms, fused_cases, roll_cases,
-                          sampler_cases, synthetic_path_index)
+                          contract_choices, cuda_ms, device_ms, fused_cases,
+                          roll_cases, sampler_cases, synthetic_path_index)
 from ..ops.roll_apply import roll_apply_nd_ref, roll_apply_ref
+from ..ops.shift_sum import VARIANTS as SHIFT_VARIANTS
+from ..ops.shift_sum import shift_sum_ref
 from ..ops.sweep_common import sample_words_ref, threefry_route
 from ..ops.sweep_dense import bucket_apply_ref, dense_apply_nd_ref
 from ..ops.sweep_fused import sweep_apply_ref
 from ..ops.sweep_plan import make_layout_plan, make_sweep_plan
 from ..params import LayoutSGDParams, PathSGDParams
+from . import dense_probe
 
 __all__ = ["SOURCES", "SASS_CLASSES", "build_old", "sass_mix", "cases",
            "main"]
@@ -82,7 +90,16 @@ SOURCES = {"1d": ("bucket_apply.cu", "gfasort_bucket_apply",
            "roll_f64": ("roll_apply.cu", "gfasort_roll_apply_f64",
                         "roll_apply_kernel"),
            "roll_nd_f64": ("roll_apply.cu", "gfasort_roll_apply_nd_f64",
-                           "roll_apply_nd_kernel")}
+                           "roll_apply_nd_kernel"),
+           "shift": ("shift_sum.cu", "gfasort_shift_sum", "shift_sum_")}
+# the shift sums' C entry point that gives a kernel's outputs per pass of
+# its body; a build without it holds the first design: one output per
+# thread (global), four (smem)
+SHIFT_PASS_ENTRY = "gfasort_shift_sum_outputs_per_pass"
+FIRST_SHIFT_PASS = {"global": 1, "smem": 4}
+# the timed shift-sum sizes, and the sizes of their untimed edge cases
+SHIFT_TIMED = (1 << 22, 1 << 26)
+SHIFT_EDGES = (1, 3, 1000, 70_001, 196_608, 1 << 22)
 
 
 def build_old(src_dir: pathlib.Path, suffix: str):
@@ -101,7 +118,8 @@ def build_old(src_dir: pathlib.Path, suffix: str):
     nvcc = kernels.nvcc_path()
     out = src_dir / "_build"
     out.mkdir(exist_ok=True)
-    rename = [f"-D{name}={name}{suffix}" for _, name, _ in SOURCES.values()]
+    names = {name for _, name, _ in SOURCES.values()} | {SHIFT_PASS_ENTRY}
+    rename = [f"-D{name}={name}{suffix}" for name in sorted(names)]
     objs, procs = [], []
     for src in srcs:
         obj = str(out / (src[:-3] + ".o"))
@@ -136,6 +154,11 @@ SASS_CLASSES = {
                        "FCHK", "FSET"),
     "LDS": ("LDS",),
     "LDG/STG": ("LDG", "STG", "LD", "ST", "LDC", "ULDC"),
+    "LDG": ("LDG", "LD"),
+    "STG": ("STG", "ST"),
+    "LDGSTS/UBLKCP": ("LDGSTS", "UBLKCP"),
+    "STS": ("STS",),
+    "SHFL": ("SHFL",),
     "BRA": ("BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET", "WARPSYNC"),
 }
 
@@ -211,6 +234,28 @@ def sass_rows(lib_path, kinds) -> dict:
     return rows
 
 
+def shift_per_output(rows: dict, lib_path, suffix: str = "") -> dict:
+    """The shift-sum kernels' rows of ``rows`` (:func:`sass_rows`) with
+    ``per_output``: the static counts of the load, store, copy and
+    shuffle classes over the outputs one pass of the kernel's body
+    computes (the library's ``SHIFT_PASS_ENTRY`` where it has one, else
+    ``FIRST_SHIFT_PASS``)."""
+    lib = ctypes.CDLL(str(lib_path))
+    entry = getattr(lib, SHIFT_PASS_ENTRY + suffix, None)
+    out = {}
+    for name, row in rows.items():
+        variant = next((v for v in SHIFT_VARIANTS
+                        if f"shift_sum_{v}" in name), None)
+        if variant is None:
+            continue
+        n = (entry(SHIFT_VARIANTS.index(variant)) if entry is not None
+             else FIRST_SHIFT_PASS[variant])
+        out[name] = dict(outputs_per_pass=n, per_output={
+            cls: row[cls] / n for cls in ("LDG", "STG", "LDGSTS/UBLKCP",
+                                          "LDS", "STS", "SHFL")})
+    return out
+
+
 def cases(dev, kinds, split=None):
     """(description, kind, inputs, timed) of every case of the given
     kinds, one at a time; ``split`` as ``--split``."""
@@ -266,6 +311,8 @@ def cases(dev, kinds, split=None):
                                              "frac", "snap")}),
                    "sampler" if c["route"] == "hash" else "sampler_tf",
                    (*c["args"], c["coin"]), c["main"])
+    if "shift" in kinds:
+        yield from _shift_cases(dev)
     if kinds & {"roll", "roll_nd", "roll_f64", "roll_nd_f64"}:
         for c in roll_cases(bench, plans, dev,
                             f64=bool(kinds & {"roll_f64", "roll_nd_f64"})):
@@ -289,6 +336,26 @@ def cases(dev, kinds, split=None):
                             P=c["P"], kernel_buckets=len(c["kb"]),
                             roll_buckets=[list(b) for b in rb]),
                        kind, args, True)
+
+
+def _shift_ref(x, halo, variant):
+    return shift_sum_ref(x, halo)
+
+
+def _shift_cases(dev):
+    """The shift sums' timed cases, then their edge cases."""
+    for S in SHIFT_TIMED:
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal(S)
+                             .astype(np.float32)).to(dev)
+        for v in SHIFT_VARIANTS:
+            yield (dict(kernel=f"shift_sum_{v}", S=S, halo=8), "shift",
+                   (x, 8, v), True)
+        del x
+    for S in SHIFT_EDGES:
+        for name, x, halo in dense_probe.edge_cases(S, dev):
+            for v in SHIFT_VARIANTS:
+                yield (dict(kernel=f"shift_sum_{v}", S=x.shape[0], halo=halo,
+                            edge=name), "shift", (x, halo, v), False)
 
 
 def _sampler_cuda(consts, key_words, cooling, rank, cnt, frac, snap, rng,
@@ -348,9 +415,14 @@ def main(argv=None) -> int:
     print(json.dumps({"new_build": "csrc", "seconds": new_s,
                       "source_seconds": kernels.source_seconds(log),
                       "ptxas": kernels.ptxas_report(log)}), flush=True)
+    suffixes = {label: f"_old{i}" for i, label in enumerate(olds)}
     for label, lib_path in [("new", new_lib), *old_libs.items()]:
-        print(json.dumps({"sass_mix": label, "static_counts": True,
-                          "kernels": sass_rows(lib_path, kinds)}), flush=True)
+        rows = sass_rows(lib_path, kinds)
+        line = {"sass_mix": label, "static_counts": True, "kernels": rows}
+        if "shift" in kinds:
+            line["shift_per_output"] = shift_per_output(
+                rows, lib_path, suffixes.get(label, ""))
+        print(json.dumps(line), flush=True)
     launch = {"1d": (kernels.bucket_apply_cuda, bucket_apply_ref),
               "nd": (kernels.dense_apply_nd_cuda, dense_apply_nd_ref),
               "fused": (kernels.sweep_apply_cuda, sweep_apply_ref),
@@ -359,7 +431,8 @@ def main(argv=None) -> int:
               "roll": (kernels.roll_apply_cuda, roll_apply_ref),
               "roll_nd": (kernels.roll_apply_nd_cuda, roll_apply_nd_ref),
               "roll_f64": (kernels.roll_apply_cuda, roll_apply_ref),
-              "roll_nd_f64": (kernels.roll_apply_nd_cuda, roll_apply_nd_ref)}
+              "roll_nd_f64": (kernels.roll_apply_nd_cuda, roll_apply_nd_ref),
+              "shift": (kernels.shift_sum_cuda, _shift_ref)}
     for desc, kind, args, timed in cases(dev, kinds, split):
         run, ref = launch[kind]
         builds = {label: entries[kind] for label, entries in olds.items()
@@ -369,8 +442,10 @@ def main(argv=None) -> int:
         for label, entry in builds.items():
             got = _flat(run(*args, entry=entry))
             torch.cuda.synchronize()
+            # the shift sums' edge cases hold NaN: compared bit for bit
+            same = dense_probe.same_bits if kind == "shift" else torch.equal
             if len(got) != len(want) or not all(
-                    torch.equal(g, w) for g, w in zip(got, want)):
+                    same(g, w) for g, w in zip(got, want)):
                 raise AssertionError(f"{label} kernel differs from the plain "
                                      f"version: {desc}")
             del got
@@ -379,12 +454,23 @@ def main(argv=None) -> int:
             continue
         order = list(builds) + list(reversed(builds))
         times = {label: [] for label in builds}
+        extra = {}
+        if kind == "shift":
+            # the device alone, L2 cold (compared), warm, and back to back
+            extra = {"wrapper_ms": {label: [] for label in builds},
+                     "device_warm_ms": {label: [] for label in builds}}
         for label in order:
             entry = builds[label]
-            times[label].append(cuda_ms(lambda: run(*args, entry=entry), 50))
+            call = (lambda: run(*args, entry=entry))
+            if kind == "shift":
+                times[label].append(device_ms(call))
+                extra["device_warm_ms"][label].append(device_ms(call, warm=True))
+                extra["wrapper_ms"][label].append(cuda_ms(call, 50))
+            else:
+                times[label].append(cuda_ms(call, 50))
         new_ms = np.mean(times["new"])
         print(json.dumps(dict(
-            desc, ms=times,
+            desc, **{"device_ms" if kind == "shift" else "ms": times}, **extra,
             speedup={label: float(np.mean(t) / new_ms)
                      for label, t in times.items() if label != "new"},
             bit_identical=True, card=card)), flush=True)

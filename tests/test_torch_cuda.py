@@ -16,7 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from gfasort_tpu_torch.bench_util import (rank_quality,  # noqa: E402
+from gfasort_tpu_torch.bench_util import (cuda_ms, device_ms,  # noqa: E402
+                                          rank_quality,
                                           synthetic_path_index)
 from gfasort_tpu_torch.ops import sweep_common as sc  # noqa: E402
 from gfasort_tpu_torch.ops.keys import (fold_in, key_data,  # noqa: E402
@@ -31,8 +32,8 @@ from gfasort_tpu_torch.ops.sweep_nd import (  # noqa: E402
     path_linear_sgd_layout_sweep)
 from gfasort_tpu_torch.ops.exact import calculate_layout_stress_pidx  # noqa: E402
 from gfasort_tpu_torch.ops import sweep_fused as sf  # noqa: E402
-from gfasort_tpu_torch.ops.shift_sum import (VARIANTS, shift_sum,  # noqa: E402
-                                             shift_sum_ref)
+from gfasort_tpu_torch.ops.shift_sum import (HALOS, VARIANTS,  # noqa: E402
+                                             shift_sum, shift_sum_ref)
 from gfasort_tpu_torch.tools import dense_probe  # noqa: E402
 from gfasort_tpu_torch.ops.sweep_plan import make_sweep_plan  # noqa: E402
 from gfasort_tpu_torch.params import LayoutSGDParams, PathSGDParams  # noqa: E402
@@ -370,13 +371,51 @@ def test_shift_sum_kernel_matches_plain_version(cuda, variant, S, halo):
     assert torch.equal(out, shift_sum_ref(x, halo))
 
 
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("halo", HALOS)
+@pytest.mark.parametrize("S", [1, 3, 1000, 70_001, 196_608])
+def test_shift_sum_kernel_edge_cases(cuda, variant, halo, S):
+    """Views of S, S + 1, S + 2 and S + 3 elements that start 0-3
+    elements past a 16-byte boundary, -0.0 at both ends, -0.0, +-inf and
+    NaN inside: equal to the plain version bit for bit, NaN included."""
+    cases = [(name, x) for name, x, h in dense_probe.edge_cases(S, cuda)
+             if h == halo]
+    assert len(cases) == 4
+    for off, (name, x) in enumerate(cases):
+        assert (x.data_ptr() % 16 == 0) == (off == 0), name
+        assert x.shape[0] % 4 == (S + off) % 4
+        out = shift_sum(x, halo, variant)
+        torch.cuda.synchronize()
+        assert dense_probe.same_bits(out, shift_sum_ref(x, halo)), name
+
+
 def test_dense_probe_runs_on_the_card(cuda):
-    res = dense_probe.run(2 * dense_probe.BLOCK, cuda)
-    assert res["launches"] == dict.fromkeys(VARIANTS, 1)
+    res = dense_probe.run(2 * dense_probe.BLOCK, cuda, edges=True)
+    assert res["edge_cases"] == 4 * len(HALOS)
+    assert res["launches"] == dict.fromkeys(VARIANTS, 1 + 4 * len(HALOS))
     for v in VARIANTS:
         assert res["variants"][v]["bit_identical"]
-        assert res["variants"][v]["ms"] > 0
+        for t in ("ms", "device_ms", "device_warm_ms"):
+            assert 0 < res["variants"][v][t] < 10, t
     assert res["library_max_abs_err"] <= dense_probe.LIBRARY_ATOL
+    assert res["library_device_ms"] > 0
+
+
+def test_device_ms_leaves_the_host_out(cuda):
+    """A call that spends 1 ms on the host before a short kernel: the
+    back-to-back timer reads the host, the device-only timer the kernel
+    (the sleep ahead of a window doubles until the host keeps up)."""
+    import time
+
+    x = torch.zeros(1 << 10, device=cuda)
+
+    def slow_host():
+        time.sleep(0.001)
+        x.add_(1.0)
+
+    assert cuda_ms(slow_host, 5) > 0.9
+    assert 0 < device_ms(slow_host, 5) < 0.2
+    assert 0 < device_ms(slow_host, 5, warm=True) < 0.2
 
 
 # ---- the jax.random draws, the f64 / threefry sweeps, the batched engine ---
