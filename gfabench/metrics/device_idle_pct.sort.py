@@ -1,0 +1,8 @@
+"""device_idle_pct.sort (%): the share of the window's sort-job time in
+which nothing runs on the device, from the trace."""
+
+from gfabench.readers import idle_pct
+
+
+def read(run):
+    return idle_pct(run)

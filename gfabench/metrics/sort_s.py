@@ -1,0 +1,8 @@
+"""sort_s (s, host clock): the wall seconds of a sort job, the window's
+summed job time over its number of jobs."""
+
+from gfabench.readers import mean_job_s
+
+
+def read(run):
+    return mean_job_s(run)

@@ -1,0 +1,1 @@
+"""Frozen plain copies; see :mod:`gfabench.reference`."""
