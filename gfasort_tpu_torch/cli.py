@@ -28,7 +28,6 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-import time
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -92,9 +91,8 @@ def main(argv=None) -> int:
 
         return run_via_server([a for a in argv if a != "--server"])
     args = build_parser().parse_args(argv)
-    from .io import gfa as gfa_io
-    from .io.fast_gfa import load_gfa_numeric_fast
-    from .pipeline import run_pipeline, validate_pipeline
+    from .pipeline import validate_pipeline
+    from .trace import Tracer
 
     if args.distributed:
         from .parallel.mesh import init_distributed
@@ -107,13 +105,26 @@ def main(argv=None) -> int:
         print(f"Error: {e}", file=sys.stderr)
         return 1
 
+    tracer = Tracer()
+    with tracer.active():
+        return _run(args, tracer)
+
+
+def _run(args, tracer) -> int:
+    """The job of the parsed ``args``: read, run the pipeline, write;
+    its spans go to ``tracer``."""
+    from .io import gfa as gfa_io
+    from .io.fast_gfa import load_gfa_numeric_fast
+    from .pipeline import run_pipeline
+
     def log(*a):
         print(*a, file=sys.stderr)
 
     if args.verbose >= 1:
         log(f"[gfasort] reading {args.input}")
     try:
-        graph = load_gfa_numeric_fast(args.input)
+        with tracer.span("gfa.read"):
+            graph = load_gfa_numeric_fast(args.input)
     except OSError as e:
         print(f"Error reading file: {e}", file=sys.stderr)
         return 1
@@ -124,7 +135,7 @@ def main(argv=None) -> int:
         log(f"[gfasort] loaded {graph.node_count()} nodes, "
             f"{len(graph.edges)} edges, {len(graph.paths)} paths")
 
-    t0 = time.time()
+    t0 = tracer.now()
     result = run_pipeline(
         graph,
         pipeline=args.pipeline,
@@ -136,23 +147,25 @@ def main(argv=None) -> int:
         batch=args.batch,
         verbose=args.verbose,
         log=log,
+        tracer=tracer,
         threads=args.threads,
         device=args.device,
     )
     if args.verbose >= 2:
-        log(f"[gfasort] pipeline took {time.time() - t0:.2f}s")
+        log(f"[gfasort] pipeline took {tracer.now() - t0:.2f}s")
     if args.trace_out:
-        result.tracer.write(args.trace_out)
+        tracer.write(args.trace_out)
     if result.layout is not None:
         if args.layout_out:
             if args.verbose >= 1:
                 log(f"[gfasort] writing layout to {args.layout_out}")
-            result.layout.write_tsv_file(args.layout_out)
+            with tracer.span("tsv.write"):
+                result.layout.write_tsv_file(args.layout_out)
         elif args.verbose >= 1:
             log("[gfasort] warning: layout computed but --layout-out not specified")
     if args.verbose >= 1:
         log(f"[gfasort] writing {args.output}")
-    with open(args.output, "w") as fh:
+    with tracer.span("gfa.write"), open(args.output, "w") as fh:
         fh.write(gfa_io.write_gfa(graph))
     if args.verbose >= 1:
         log("[gfasort] done")

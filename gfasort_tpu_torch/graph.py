@@ -23,6 +23,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from . import handle as H
+from .trace import spanned
 
 __all__ = ["BiPath", "BidirectedGraph"]
 
@@ -483,6 +484,7 @@ class BidirectedGraph:
         mapping = {old: i + 1 for i, old in enumerate(self.live_node_ids())}
         self.apply_node_id_mapping(mapping)
 
+    @spanned("graph.reorder")
     def apply_ordering(self, ordering: Sequence[int]) -> None:
         """Renumber so ordering[k] becomes id k+1 (src/graph_ops.rs:1939-2025).
 

@@ -30,6 +30,7 @@ from typing import Dict, List
 import numpy as np
 
 from .graph import BidirectedGraph
+from .trace import spanned
 
 __all__ = ["PathIndex", "sgd_node_ids"]
 
@@ -77,6 +78,7 @@ class PathIndex:
     step_count_of_step: np.ndarray  # [S] step count of the step's path
 
     @classmethod
+    @spanned("index.build")
     def from_graph(cls, graph: BidirectedGraph) -> "PathIndex":
         handles, poss, pths, rnks = [], [], [], []
         counts, lens = [], []

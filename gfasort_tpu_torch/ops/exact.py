@@ -33,6 +33,7 @@ from ..graph import BidirectedGraph
 from ..index import PathIndex
 from ..io.layout_tsv import Layout
 from ..params import LayoutSGDParams, PathSGDParams
+from ..trace import spanned
 from .rng import UniformInt, Xoshiro256Plus
 from .schedule import eta_schedule
 from .fastpow import zeta_table
@@ -257,6 +258,7 @@ def path_sgd_sort_exact(graph: BidirectedGraph, params: PathSGDParams,
     return [H.forward(int(pidx.node_ids[idx])) for idx in order]
 
 
+@spanned("layout.init")
 def layout_initial_coords(pidx: PathIndex, dims: int, seed: int) -> np.ndarray:
     """Initial nD layout state, shape [2N, D] (src/sgd.rs:828-854):
     dim 0 = cumulative bp offset for the + end (row 2i) and + node_len
@@ -426,6 +428,7 @@ def path_linear_sgd_layout_exact(
     return Layout.from_vectors([np.asarray(c) for c in coords])
 
 
+@spanned("layout.stress")
 def calculate_layout_stress(
     graph: BidirectedGraph, layout: Layout, sample_count: int
 ) -> float:

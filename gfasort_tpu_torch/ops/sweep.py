@@ -37,6 +37,7 @@ from ..device import resolve_device
 from ..graph import BidirectedGraph
 from ..index import PathIndex
 from ..params import PathSGDParams
+from ..trace import span, spanned
 from . import runner_cache
 from .keys import key_data, sweep_key_table
 from .node_sum import JAX_ROW_RUN, build_gather_consensus
@@ -80,6 +81,7 @@ def apply_choices(xs, pos, words, phase: PhasePlan, eta: float,
                       dsum, csum)
 
 
+@spanned("sweep.build")
 def build_sweep_runner(
     pidx: PathIndex,
     params: PathSGDParams,
@@ -109,8 +111,9 @@ def build_sweep_runner(
         hit = runner_cache.get(ck)
         if hit is not None:
             return hit
-    plan = make_sweep_plan(pidx, params, per_octave, consensus_every,
-                           active_frac, rotate, dense_upto, proposals)
+    with span("sweep.plan"):
+        plan = make_sweep_plan(pidx, params, per_octave, consensus_every,
+                               active_frac, rotate, dense_upto, proposals)
     npd = np.dtype(plan.dtype).type
     tdt = torch_dtype(plan.dtype)
     gc = build_gather_consensus(pidx.step_node_idx, pidx.num_nodes, dev,
@@ -248,9 +251,11 @@ def path_linear_sgd_sweep(
         pidx, params, per_octave, consensus_every, active_frac, rotate,
         dense_upto, proposals, device=device,
     )
-    xs0, x_node0 = make_state(x0)
-    x_final = run(xs0, x_node0, key_data(params.seed), *arrays)
-    x = x_final.cpu().numpy().astype(np.float64)
+    with span("sweep.build"):
+        xs0, x_node0 = make_state(x0)
+    with span("sweep.run"):
+        x_final = run(xs0, x_node0, key_data(params.seed), *arrays)
+        x = x_final.cpu().numpy().astype(np.float64)
     if return_info:
         return SweepResult(
             x=x, sweeps=info["n_sweeps"],
@@ -266,5 +271,6 @@ def path_sgd_sort_sweep(graph: BidirectedGraph, params: PathSGDParams,
     x = path_linear_sgd_sweep(graph, params, pidx, device=device, **kw)
     if x is None or len(x) == 0:
         return []
-    order = np.argsort(x, kind="stable")
-    return (np.asarray(pidx.node_ids)[order] << 1).tolist()
+    with span("sgd.order"):
+        order = np.argsort(x, kind="stable")
+        return (np.asarray(pidx.node_ids)[order] << 1).tolist()

@@ -32,6 +32,7 @@ from ..graph import BidirectedGraph
 from ..index import PathIndex
 from ..io.layout_tsv import Layout
 from ..params import LayoutSGDParams
+from ..trace import span, spanned
 from . import runner_cache
 from .keys import key_data
 from .node_sum import build_gather_consensus
@@ -77,6 +78,7 @@ def nd_sweep_once(cs, pos, rank, cnt, rev, length, phase: PhasePlan,
                          phase.roll_buckets, proposals, acc, wacc)
 
 
+@spanned("sweep.build")
 def build_sweep_nd_runner(
     pidx: PathIndex,
     params: LayoutSGDParams,
@@ -109,8 +111,9 @@ def build_sweep_nd_runner(
         hit = runner_cache.get(ck)
         if hit is not None:
             return hit
-    plan = make_layout_plan(pidx, params, per_octave, consensus_every,
-                            active_frac, rotate, dense_upto, proposals)
+    with span("sweep.plan"):
+        plan = make_layout_plan(pidx, params, per_octave, consensus_every,
+                                active_frac, rotate, dense_upto, proposals)
     npd = np.dtype(plan.dtype).type
     gc = build_gather_consensus(pidx.step_node_idx, pidx.num_nodes, dev,
                                 dtype=npd)
@@ -178,10 +181,12 @@ def path_linear_sgd_layout_sweep(
         pidx, params, per_octave, consensus_every, active_frac, rotate,
         dense_upto, proposals, device=device,
     )
-    cs0, cs_node0 = make_state(init_coords)
-    x_node = run(cs0, cs_node0, key_data(params.seed), *arrays)
-    # [2D, N] rows -> [2N, D] node-end-major state
-    xn = x_node.cpu().numpy().astype(np.float64)
+    with span("sweep.build"):
+        cs0, cs_node0 = make_state(init_coords)
+    with span("sweep.run"):
+        x_node = run(cs0, cs_node0, key_data(params.seed), *arrays)
+        # [2D, N] rows -> [2N, D] node-end-major state
+        xn = x_node.cpu().numpy().astype(np.float64)
     state = np.ascontiguousarray(
         xn.reshape(2, dims, n).transpose(2, 0, 1).reshape(2 * n, dims)
     )

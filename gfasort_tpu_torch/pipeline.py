@@ -24,7 +24,6 @@ by default :func:`~.parallel.mesh.default_mesh` on ``device``'s type
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
@@ -243,52 +242,54 @@ def run_pipeline(
     as in ``gfasort_tpu.pipeline.run_pipeline``.  ``mesh``: the sharded
     engines' mesh (default: ``default_mesh`` on ``device``'s type)."""
     validate_pipeline(pipeline)
-    ygs_params = YgsParams.from_graph(graph, verbose=verbose)
-    sgd_params = replace(ygs_params.path_sgd, iter_max=iter_max)
-    pidx = PathIndex.from_graph(graph)
-    layout_params = LayoutSGDParams().derive_from_graph(pidx, dimensions)
-    layout_params = replace(layout_params, iter_max=layout_iter)
-    if seed is not None:
-        sgd_params = replace(sgd_params, seed=seed)
-        layout_params = replace(layout_params, seed=seed)
-    if batch is not None:
-        sgd_params = replace(sgd_params, batch=batch)
-        layout_params = replace(layout_params, batch=batch)
-
-    result = PipelineResult(graph=graph)
-    names = {
-        "Y": "SGD", "g": "groom", "s": "topo-sort",
-        "S": "priority-topo-sort", "u": "unchop",
-        "L": f"{dimensions}D layout",
-    }
     tracer = tracer if tracer is not None else Tracer()
-    result.tracer = tracer
-    for step_num, c in enumerate(pipeline):
-        if verbose >= 1:
-            log(f"[gfasort] [{step_num + 1}/{len(pipeline)}] {names[c]}")
-        t0 = time.perf_counter()
-        with tracer.step(names[c], step=step_num + 1,
-                         nodes=graph.node_count(), edges=len(graph.edges)):
-            if c == "Y":
-                sgd_sort_only(graph, sgd_params, engine, threads,
-                              device=device, mesh=mesh)
-            elif c == "g":
-                groom_only(graph)
-            elif c == "s":
-                topological_sort_only(graph)
-            elif c == "S":
-                priority_topological_sort_only(graph)
-            elif c == "u":
-                unchop_only(graph)
-            elif c == "L":
-                layout, stress = layout_step(graph, layout_params, engine,
-                                             device=device, mesh=mesh)
-                result.layout = layout
-                result.layout_stress = stress
-                if verbose >= 1:
-                    log(f"[gfasort] layout stress: {stress:.6f}")
-        if verbose >= 1:
-            log(f"[gfasort]   {names[c]} took {time.perf_counter() - t0:.2f}s")
+    with tracer.active():
+        with tracer.span("pipeline.params"):
+            ygs_params = YgsParams.from_graph(graph, verbose=verbose)
+            sgd_params = replace(ygs_params.path_sgd, iter_max=iter_max)
+            pidx = PathIndex.from_graph(graph)
+            layout_params = LayoutSGDParams().derive_from_graph(pidx,
+                                                                dimensions)
+            layout_params = replace(layout_params, iter_max=layout_iter)
+            if seed is not None:
+                sgd_params = replace(sgd_params, seed=seed)
+                layout_params = replace(layout_params, seed=seed)
+            if batch is not None:
+                sgd_params = replace(sgd_params, batch=batch)
+                layout_params = replace(layout_params, batch=batch)
+
+        result = PipelineResult(graph=graph, tracer=tracer)
+        names = {
+            "Y": "SGD", "g": "groom", "s": "topo-sort",
+            "S": "priority-topo-sort", "u": "unchop",
+            "L": f"{dimensions}D layout",
+        }
+        for step_num, c in enumerate(pipeline):
+            if verbose >= 1:
+                log(f"[gfasort] [{step_num + 1}/{len(pipeline)}] {names[c]}")
+            with tracer.step(names[c], step=step_num + 1,
+                             nodes=graph.node_count(), edges=len(graph.edges)):
+                if c == "Y":
+                    sgd_sort_only(graph, sgd_params, engine, threads,
+                                  device=device, mesh=mesh)
+                elif c == "g":
+                    groom_only(graph)
+                elif c == "s":
+                    topological_sort_only(graph)
+                elif c == "S":
+                    priority_topological_sort_only(graph)
+                elif c == "u":
+                    unchop_only(graph)
+                elif c == "L":
+                    layout, stress = layout_step(graph, layout_params, engine,
+                                                 device=device, mesh=mesh)
+                    result.layout = layout
+                    result.layout_stress = stress
+                    if verbose >= 1:
+                        log(f"[gfasort] layout stress: {stress:.6f}")
+            if verbose >= 1:
+                log(f"[gfasort]   {names[c]} took "
+                    f"{tracer.events[-1].seconds:.2f}s")
     if verbose >= 2:
         log(f"[gfasort] step timings: {tracer.summary()}")
     return result

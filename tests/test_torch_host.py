@@ -273,15 +273,23 @@ def test_bench_util_and_trace_match_jax(what):
         a, b = rng.permutation(500), rng.permutation(500)
         assert t_bench.rank_quality(a, b) == j_bench.rank_quality(a, b)
     else:
+        # the step lines agree on the JAX tracer's keys; the port's lines
+        # add the step span's start, end and descendants
         out = []
         for tracer in (TTracer(), JTracer()):
             with tracer.step("SGD", step=1, nodes=3):
                 pass
-            tracer.record("x", 0.5, k=2)
-            out.append([{k: v for k, v in json.loads(line).items()
-                         if k != "seconds"}
+            out.append([json.loads(line)
                         for line in tracer.to_json_lines().splitlines()])
-        assert out[0] == out[1]
+        (t_line,), (j_line,) = out
+        jax_keys = set(j_line) - {"seconds"}
+        assert {k: t_line[k] for k in jax_keys} == {k: j_line[k]
+                                                    for k in jax_keys}
+        assert set(t_line) - set(j_line) == {"start", "end", "spans"}
+        assert t_line["spans"] == []
+        assert 0 <= t_line["start"] <= t_line["end"]
+        assert t_line["end"] - t_line["start"] == pytest.approx(
+            t_line["seconds"], abs=1e-5)
 
 
 @pytest.mark.parametrize("what", ["verify", "compat", "compare_layouts",
