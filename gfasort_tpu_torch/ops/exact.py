@@ -428,7 +428,6 @@ def path_linear_sgd_layout_exact(
     return Layout.from_vectors([np.asarray(c) for c in coords])
 
 
-@spanned("layout.stress")
 def calculate_layout_stress(
     graph: BidirectedGraph, layout: Layout, sample_count: int
 ) -> float:
@@ -439,20 +438,20 @@ def calculate_layout_stress(
     )
 
 
+@spanned("layout.stress")
 def calculate_layout_stress_pidx(
     pidx: PathIndex, layout: Layout, sample_count: int
 ) -> float:
-    """Stress from a prebuilt PathIndex (synthetic benches have no host
-    graph)."""
+    """Stress from a prebuilt PathIndex (the ``L`` step's own, or a
+    synthetic bench's).  The step columns are read per sample, in place:
+    the work scales with ``sample_count``, not with the step count."""
     if pidx.total_steps < 2:
         return 0.0
     rng = Xoshiro256Plus(12345)
     step_dist = UniformInt(0, pidx.total_steps)
 
-    step_path = pidx.step_path.tolist()
-    step_rank = pidx.step_rank.tolist()
-    step_pos = pidx.step_pos.tolist()
-    step_node = pidx.step_node_idx.tolist()
+    step_path, step_rank = pidx.step_path, pidx.step_rank
+    step_pos, step_node = pidx.step_pos, pidx.step_node_idx
     path_first = pidx.path_first.tolist()
     path_count = pidx.path_count.tolist()
 
@@ -460,11 +459,11 @@ def calculate_layout_stress_pidx(
     count = 0
     for _ in range(sample_count):
         sa0 = step_dist.sample(rng)
-        p = step_path[sa0]
+        p = int(step_path[sa0])
         count_p = path_count[p]
         if count_p < 2:
             continue
-        rank_a = step_rank[sa0]
+        rank_a = int(step_rank[sa0])
         rank_b = UniformInt(0, count_p).sample(rng)
         if rank_a == rank_b:
             continue
@@ -473,7 +472,7 @@ def calculate_layout_stress_pidx(
         path_dist = abs(float(step_pos[sa]) - float(step_pos[sb]))
         if path_dist == 0.0:
             continue
-        d = layout.distance(step_node[sa], 0, step_node[sb], 0)
+        d = layout.distance(int(step_node[sa]), 0, int(step_node[sb]), 0)
         err = d - path_dist
         stress_sum += (err * err) / (path_dist * path_dist)
         count += 1

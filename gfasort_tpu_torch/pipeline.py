@@ -198,9 +198,9 @@ def layout_step(
         from .ops.sweep_nd import path_linear_sgd_layout_sweep
 
         layout = path_linear_sgd_layout_sweep(graph, params, pidx, device=device)
-    from .ops.exact import calculate_layout_stress
+    from .ops.exact import calculate_layout_stress_pidx
 
-    stress = calculate_layout_stress(graph, layout, stress_samples)
+    stress = calculate_layout_stress_pidx(pidx, layout, stress_samples)
     return layout, stress
 
 

@@ -203,6 +203,102 @@ def test_layout_init_and_stress_match_jax(dims):
             == j_native.layout_stress_2d_native(pidx_j, xs, ys, present, 800)
 
 
+# paths that take each skip of the stress: "one" has one step
+# (count_p < 2), "two" two (rank_a == rank_b one draw in two), and "zero"
+# steps on the empty nodes 2 and 3, so three of its steps share a position
+# (path_dist == 0)
+SKIP_GFA = "".join([
+    "H\tVN:Z:1.0\n",
+    "S\t1\tACGT\nS\t2\t\nS\t3\t\nS\t4\tACGTACGTA\nS\t5\tAC\nS\t6\tGATTACA\n",
+    "L\t1\t+\t2\t+\t0M\nL\t2\t+\t3\t+\t0M\nL\t3\t+\t4\t+\t0M\n",
+    "L\t4\t+\t5\t+\t0M\nL\t5\t+\t6\t+\t0M\nL\t1\t+\t5\t+\t0M\n",
+    "P\tone\t4+\t*\nP\ttwo\t1+,5+\t*\nP\tzero\t1+,2+,3+,4+,5+,6+\t*\n",
+])
+
+
+def _stress_skips(pidx, sample_count):
+    """Replays the stress's draws and counts the samples that each skip
+    drops: ``count_p < 2``, ``rank_a == rank_b``, ``path_dist == 0``."""
+    from gfasort_tpu_torch.ops.rng import UniformInt, Xoshiro256Plus
+
+    rng = Xoshiro256Plus(12345)
+    step_dist = UniformInt(0, pidx.total_steps)
+    skips = [0, 0, 0]
+    for _ in range(sample_count):
+        sa0 = step_dist.sample(rng)
+        p = int(pidx.step_path[sa0])
+        count_p = int(pidx.path_count[p])
+        if count_p < 2:
+            skips[0] += 1
+            continue
+        rank_a = int(pidx.step_rank[sa0])
+        rank_b = UniformInt(0, count_p).sample(rng)
+        if rank_a == rank_b:
+            skips[1] += 1
+            continue
+        first = int(pidx.path_first[p])
+        skips[2] += int(pidx.step_pos[first + rank_a]
+                        == pidx.step_pos[first + rank_b])
+    return skips
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_stress_takes_every_skip_as_jax(dims):
+    """The stress reads the sampled steps in place and takes the three
+    skips of the reference's loop in its order: equal to the JAX
+    package's to the bit, from a prebuilt index and from the graph."""
+    from gfasort_tpu.io.layout_tsv import Layout as JLayout
+    from gfasort_tpu_torch.io.layout_tsv import Layout as TLayout
+
+    gt, gj = _pair(SKIP_GFA)
+    pidx_t, pidx_j = _pidx_pair(SKIP_GFA)
+    state = t_exact.layout_initial_coords(pidx_t, dims, 9399220)
+    lt, lj = TLayout.from_state(state), JLayout.from_state(state)
+    for n in (1, 7, 2000):
+        s_t = t_exact.calculate_layout_stress_pidx(pidx_t, lt, n)
+        assert s_t == j_exact.calculate_layout_stress_pidx(pidx_j, lj, n)
+        assert t_exact.calculate_layout_stress(gt, lt, n) == s_t
+    assert s_t > 0
+    assert min(_stress_skips(pidx_t, 2000)) > 0
+
+
+def _numpy_pidx(cls, steps=3_000_000, paths=90, nodes=250_000, seed=11):
+    """A path index of a chromosome graph's proportions made in numpy
+    alone: path 0 has one step, node lengths 0-39 bp."""
+    rng = np.random.default_rng(seed)
+    count = np.concatenate([[1], rng.multinomial(
+        steps - 1, np.full(paths - 1, 1 / (paths - 1)))]).astype(np.int64)
+    first = np.concatenate([[0], np.cumsum(count)[:-1]])
+    step_path = np.repeat(np.arange(paths, dtype=np.int32), count)
+    step_node = rng.integers(0, nodes, steps)
+    node_len = rng.integers(0, 40, nodes)
+    lengths = node_len[step_node]
+    before = np.cumsum(lengths) - lengths
+    return cls(
+        step_handle=step_node * 2, step_pos=before - before[first][step_path],
+        step_path=step_path,
+        step_rank=np.arange(steps) - first[step_path],
+        path_first=first, path_count=count,
+        path_len=np.add.reduceat(lengths, first),
+        node_ids=np.arange(nodes), node_len=node_len, handle_to_idx={},
+        step_node_idx=step_node, step_count_of_step=count[step_path],
+    ), np.random.default_rng(seed + 1).normal(0, 1e5, (2 * nodes, 2))
+
+
+def test_stress_of_a_large_index_matches_jax():
+    """3M steps, so the sampled steps lie far apart in the columns."""
+    from gfasort_tpu.io.layout_tsv import Layout as JLayout
+    from gfasort_tpu_torch.io.layout_tsv import Layout as TLayout
+
+    pidx_t, state = _numpy_pidx(t_index.PathIndex)
+    pidx_j, _ = _numpy_pidx(J.PathIndex)
+    s_t = t_exact.calculate_layout_stress_pidx(
+        pidx_t, TLayout.from_state(state), 10_000)
+    assert s_t > 0
+    assert s_t == j_exact.calculate_layout_stress_pidx(
+        pidx_j, JLayout.from_state(state), 10_000)
+
+
 @pytest.mark.parametrize("fn", ["offset_set", "auto_sweep_config",
                                 "phase_structure", "fit_consensus_period",
                                 "constants_and_fastpow"])

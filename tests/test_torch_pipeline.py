@@ -107,6 +107,23 @@ def test_layout_step_sends_other_engine_names_to_batched():
         run_pipeline(g, "Y", iter_max=2, engine="hogwild", device="cpu")
 
 
+@pytest.mark.parametrize("engine", ["sweep", "exact"])
+def test_layout_step_stress_reads_the_steps_own_index(engine):
+    """``layout_step`` hands the stress the path index it built for its
+    engine: the stress it returns equals the one computed from a fresh
+    index of the graph after the step."""
+    from gfasort_tpu_torch.ops.exact import calculate_layout_stress
+    from gfasort_tpu_torch.params import LayoutSGDParams
+    from gfasort_tpu_torch.pipeline import layout_step
+
+    g, _ = _graph(nodes=300, steps=300)
+    lp = replace(LayoutSGDParams().derive_from_graph(
+        PathIndex.from_graph(g), 2), iter_max=2)
+    layout, stress = layout_step(g, lp, engine=engine, device="cpu")
+    assert stress > 0
+    assert stress == calculate_layout_stress(g, layout, 10_000)
+
+
 def test_cli_sweep_on_cpu_writes_sorted_gfa(tmp_path):
     g, text = _graph(seed=8)
     src, dst = tmp_path / "in.gfa", tmp_path / "out.gfa"

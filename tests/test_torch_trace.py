@@ -175,13 +175,14 @@ def test_trace_out_of_a_sygs_job_keeps_one_line_per_step(tmp_path):
 
 
 @pytest.mark.parametrize("pipeline", ["sYgs", "L"])
-def test_a_job_builds_the_path_index_four_times(pipeline, tmp_path,
-                                                 monkeypatch):
+def test_a_job_builds_the_path_index_four_or_three_times(pipeline, tmp_path,
+                                                         monkeypatch):
     """The count of ``index.build`` spans of one CLI job.  Pinned at 4 for
-    both jobs: the parameters build two (``YgsParams.from_graph`` and
-    ``run_pipeline``'s own), the step one more to pick its engine, and
-    the sweep engine (``Y``) or the stress (``L``) the fourth.  A change
-    that removes a rebuild lowers this number."""
+    ``sYgs`` and 3 for ``L``: the parameters build two
+    (``YgsParams.from_graph`` and ``run_pipeline``'s own), the step one
+    more to pick its engine, and the sweep engine (``Y``) a fourth; the
+    stress (``L``) reads the step's own.  A change that removes a rebuild
+    lowers this number."""
     made = []
     make = trace.Tracer
 
@@ -203,6 +204,6 @@ def test_a_job_builds_the_path_index_four_times(pipeline, tmp_path,
         return s.name
 
     builds = [top(s) for s in t.spans if s.name == "index.build"]
-    step = "SGD" if pipeline == "sYgs" else "2D layout"
-    assert sorted(builds) == sorted(["pipeline.params"] * 2 + [step] * 2)
+    step = {"sYgs": ["SGD"] * 2, "L": ["2D layout"]}[pipeline]
+    assert sorted(builds) == sorted(["pipeline.params"] * 2 + step)
     assert (t.spans[0].name, t.spans[-1].name) == ("gfa.read", "gfa.write")
