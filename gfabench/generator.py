@@ -23,6 +23,23 @@ numbers them.  L lines are every adjacency of the paths, once each.  The
 same arguments give the same bytes; the site, indel and inversion counts
 are fixed by the sizes, so every seed gives the same amount of work up
 to the draws of k.
+
+``repeat_arrays`` (optional; absent or empty, the graph above byte for
+byte) folds tandem-repeat arrays into the graph as an all-to-all aligner
+such as PGGB collapses a centromeric satellite: the copies of one repeat
+unit become one chain of unit nodes with an edge from its last node back
+to its first.  Each array sits at the fraction ``at`` along the
+backbone, inside the nearest backbone segment of 2 bp or more that no
+inversion holds, which it splits in two.  Its unit of ``unit_bp`` bases
+is built as the backbone is, of segments and SNV sites, with
+``unit_theta`` in the place of ``theta``, each site's alternative allele
+at a frequency drawn from the same spectrum.  A share ``absent_share`` of
+the haplotypes, at random, lacks the array and steps from the segment's
+first half to its second; every other haplotype carries ``copies`` =
+[lo, hi] copies, its count drawn uniformly, and walks the unit once per
+copy, in its own orientation, picking each site's allele afresh at every
+copy.  These draws come from a stream of their own per array, seeded
+from the graph's seed, so no draw of the backbone moves.
 """
 
 from __future__ import annotations
@@ -42,6 +59,11 @@ GRAPH_KEYS = ("paths", "haplotype_bp", "theta", "indel_share",
               "reversed_share", "chrom")
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+# the repeat arrays' streams: np.random.default_rng([seed, _ARRAY_TAG, a])
+# for array a
+_ARRAY_TAG = 0x5A7E11
+_ARRAY_KEYS = {"at", "unit_bp", "unit_theta", "copies", "absent_share"}
 
 
 def job_seed(seed: int, job: int) -> int:
@@ -69,11 +91,58 @@ def _carriers(rng, counts: np.ndarray, paths: int) -> np.ndarray:
     return keys <= kth[:, None]
 
 
+def _fold_array(spec: dict, rng, paths: int, free: np.ndarray,
+                n_slots: int):
+    """One repeat array (``spec``, an entry of ``repeat_arrays``), its
+    draws from ``rng``, placed in the free segment nearest its ``at``
+    (``free``: [n_sites + 1] bool).  Its new slots number from
+    ``n_slots``: the unit's, each site as a segment, a ref and an alt
+    node, the closing segment, and last the split segment's second half.
+    Returns (segment index, per haplotype the slots it walks after the
+    segment's first half, the unit's node lengths, the unit's bases)."""
+    if set(spec) != _ARRAY_KEYS:
+        raise ValueError(f"a repeat array has the keys {sorted(_ARRAY_KEYS)}"
+                         f", not {sorted(spec)}")
+    lo, hi = (int(c) for c in spec["copies"])
+    if not (0 <= spec["at"] <= 1 and spec["unit_bp"] >= 1 and 1 <= lo <= hi
+            and 0 <= spec["absent_share"] <= 1 and free.any()):
+        raise ValueError(f"a repeat array out of range, or no free "
+                         f"segment left for it: {spec}")
+    cand = np.flatnonzero(free)
+    seg = int(cand[np.argmin(np.abs(cand - spec["at"] * (len(free) - 1)))])
+
+    n_us = max(1, int(round(sites_per_bp(paths, spec["unit_theta"])
+                            * spec["unit_bp"])))
+    gap = spec["unit_bp"] / (n_us + 1)
+    unit_len = np.ones(3 * n_us + 1, dtype=np.int64)
+    unit_len[0::3] = 1 + np.floor(rng.exponential(max(gap - 1, 0.0),
+                                                  n_us + 1)).astype(np.int64)
+    freq = _alt_counts(rng, n_us, paths) / paths
+    bases = rng.integers(0, 4, size=int(unit_len.sum()), dtype=np.uint8)
+    start = np.cumsum(unit_len) - unit_len
+    bases[start[2::3]] = (bases[start[1::3]] + 1
+                          + rng.integers(0, 3, size=n_us)) % 4
+    absent = np.zeros(paths, dtype=bool)
+    absent[:int(round(spec["absent_share"] * paths))] = True
+    absent = rng.permutation(absent)
+    copies = np.where(absent, 0, rng.integers(lo, hi + 1, size=paths))
+    alt = rng.random((int(copies.sum()), n_us)) < freq
+    # one row per copy: the segments, and each site's ref or alt node
+    rows = np.empty((len(alt), 2 * n_us + 1), dtype=np.int64)
+    rows[:, 0::2] = n_slots + 3 * np.arange(n_us + 1)
+    rows[:, 1::2] = n_slots + 3 * np.arange(n_us) + 1 + alt
+    second_half = n_slots + len(unit_len)
+    ends = np.cumsum(copies)
+    inserts = [np.append(rows[e - c:e].ravel(), second_half)
+               for c, e in zip(copies.tolist(), ends.tolist())]
+    return seg, inserts, unit_len, bases
+
+
 def pangenome_gfa(paths: int, haplotype_bp: int, theta: float,
                   indel_share: float, max_indel_bp: int,
                   inversions_per_mbp: float, inversion_bp,
                   reversed_share: float, seed: int,
-                  chrom: str = "chr") -> bytes:
+                  chrom: str = "chr", repeat_arrays=()) -> bytes:
     """The whole GFA, as bytes."""
     rng = np.random.default_rng(seed)
     per_bp = sites_per_bp(paths, theta)
@@ -124,6 +193,18 @@ def pangenome_gfa(paths: int, haplotype_bp: int, theta: float,
     backward[:int(round(reversed_share * paths))] = True
     backward = rng.permutation(backward)
 
+    # the repeat arrays: segments that no inversion holds are free
+    free = np.cumsum(np.bincount(first, minlength=n_sites + 2)
+                     - np.bincount(last + 1, minlength=n_sites + 2))[:-1] == 0
+    free &= seg_len >= 2
+    arrays, n_slots = [], n_nodes
+    for k, spec in enumerate(repeat_arrays or ()):
+        arr = _fold_array(spec, np.random.default_rng([seed, _ARRAY_TAG, k]),
+                          paths, free, n_slots)
+        free[arr[0]] = False
+        n_slots += len(arr[2]) + 1
+        arrays.append(arr)
+
     carry_pad = np.vstack([carry, np.zeros((1, paths), bool)])
     walks = []
     for h in range(paths):
@@ -135,15 +216,22 @@ def pangenome_gfa(paths: int, haplotype_bp: int, theta: float,
             a, b = np.searchsorted(walk, [inv_lo[i], inv_hi[i]])
             walk[a:b] = walk[a:b][::-1].copy()
             rev[a:b] = True
+        for seg, inserts, _, _ in arrays:
+            p = int(np.flatnonzero(walk == seg_slot[seg])[0]) + 1
+            walk = np.concatenate([walk[:p], inserts[h], walk[p:]])
+            rev = np.concatenate([rev[:p], np.zeros(len(inserts[h]), bool),
+                                  rev[p:]])
         if backward[h]:
             walk, rev = walk[::-1].copy(), ~rev[::-1]
         walks.append((walk, rev))
 
-    # ids by first visit, the paths in file order
+    # ids by first visit, the paths in file order (an allele node of a
+    # unit that no copy picked is left out)
     allw = np.concatenate([w for w, _ in walks])
-    _, first_at = np.unique(allw, return_index=True)
-    node_id = np.empty(n_nodes, dtype=np.int64)
-    node_id[np.argsort(first_at, kind="stable")] = np.arange(1, n_nodes + 1)
+    seen, first_at = np.unique(allw, return_index=True)
+    node_id = np.zeros(n_slots, dtype=np.int64)
+    node_id[seen[np.argsort(first_at, kind="stable")]] = np.arange(
+        1, len(seen) + 1)
 
     # sequences, the alt base of an SNV unlike its ref base
     off = np.cumsum(node_len) - node_len
@@ -155,10 +243,20 @@ def pangenome_gfa(paths: int, haplotype_bp: int, theta: float,
         site, n_sites - 1)] == 0))
     seq[off[alt_slot]] = (seq[off[ref_slot]] + 1
                           + rng.integers(0, 3, size=len(snv))) % 4
+    # each array's unit, then its segment's second half, which keeps the
+    # backbone's bases where they were
+    for seg, _, unit_len, bases in arrays:
+        s_at, s_len = off[seg_slot[seg]], node_len[seg_slot[seg]]
+        half = s_len // 2
+        node_len[seg_slot[seg]] = half
+        off = np.concatenate([off, len(seq) + np.cumsum(unit_len) - unit_len,
+                              [s_at + half]])
+        node_len = np.concatenate([node_len, unit_len, [s_len - half]])
+        seq = np.concatenate([seq, bases])
     blob = _BASES[seq].tobytes()
 
     out = [b"H\tVN:Z:1.0"]
-    by_id = np.argsort(node_id)
+    by_id = seen[np.argsort(node_id[seen])]
     out += [b"S\t%d\t%s" % (i + 1, blob[o:o + n]) for i, (o, n) in
             enumerate(zip(off[by_id].tolist(), node_len[by_id].tolist()))]
     # L lines: the path adjacencies in canonical (smaller-handle-first)
@@ -183,10 +281,12 @@ def pangenome_gfa(paths: int, haplotype_bp: int, theta: float,
 
 def write_pangenome_gfa(path, config: dict, seed: int) -> float:
     """Write the graph of ``config`` (a configuration's file, its keys
-    ``GRAPH_KEYS``) for ``seed`` to ``path``; returns the seconds that
-    making the text took, the write left out."""
+    ``GRAPH_KEYS`` and, where it has one, ``repeat_arrays``) for ``seed``
+    to ``path``; returns the seconds that making the text took, the write
+    left out."""
     t0 = time.perf_counter()
-    data = pangenome_gfa(seed=seed, **{k: config[k] for k in GRAPH_KEYS})
+    data = pangenome_gfa(seed=seed, **{k: config[k] for k in GRAPH_KEYS},
+                         repeat_arrays=config.get("repeat_arrays", ()))
     text_s = time.perf_counter() - t0
     with open(path, "wb") as fh:
         fh.write(data)

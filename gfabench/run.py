@@ -2,9 +2,11 @@
 
     python -m gfabench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-One process: set-up (torch and the program imported, the warm-up job's
-input made from the seed and the whole warm-up job run, which loads or
-builds the program's kernel and host libraries), then the window: CLI
+One process: set-up (glibc's malloc told to keep freed memory, torch and
+the program imported, the warm-up job's input made from the seed and the
+whole warm-up job run, which loads or builds the program's kernel and
+host libraries and maps the memory that the jobs re-use), then the
+window: CLI
 jobs through ``gfasort_tpu_torch.cli.main``, one after another, each on a
 new input made between jobs off the job clock, until the jobs' summed
 time reaches ``--seconds`` (the last job runs to its end).  Then the
@@ -70,19 +72,41 @@ class NoChip(RuntimeError):
 class Run:
     """What a metric reader reads: the cell, the set-up seconds, the
     window's jobs (:class:`gfabench.jobs.Job`), the device trace of a
-    ``--trace 1`` run on the card (else None) and the SM clock of the
-    bounds."""
+    ``--trace 1`` run on the card (else None), the SM clock of the bounds
+    and the device memory peak in bytes (0 without a card)."""
 
     cell: Cell
     setup_s: float
     jobs: list
     trace: Optional[object]
     clock_mhz: float
+    memory_peak_bytes: int = 0
 
 
 def forbidden_modules(names) -> list:
     """The FORBIDDEN top-level names among module names."""
     return sorted({n.split(".", 1)[0] for n in names} & set(FORBIDDEN))
+
+
+def keep_freed_memory() -> bool:
+    """Have glibc's malloc serve every block from its heap and never hand
+    freed memory back to the kernel (``M_MMAP_MAX`` 0, ``M_TRIM_THRESHOLD``
+    at its largest), so that the window's jobs re-use the pages that the
+    warm-up job faulted in.  Otherwise every large array of a job is
+    mapped and unmapped anew, and the page faults, 1.2-2.0 s of system
+    time in a 9-11 s job on the card's host, whose cost swings with the
+    host's load, land in the window.  False where the C library has no
+    ``mallopt`` or refuses a setting."""
+    import ctypes
+
+    try:
+        mallopt = ctypes.CDLL(None).mallopt
+    except (OSError, AttributeError):
+        return False
+    m_trim_threshold, m_mmap_max = -1, -4
+    # -1 reads as the largest size_t: no trim
+    return (mallopt(m_mmap_max, 0) == 1
+            and mallopt(m_trim_threshold, -1) == 1)
 
 
 def _say(*parts) -> None:
@@ -252,7 +276,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             torch.cuda.empty_cache()
 
         run = Run(cell=cell, setup_s=setup_s, jobs=jobs, trace=tr,
-                  clock_mhz=clock)
+                  clock_mhz=clock,
+                  memory_peak_bytes=device["memory_peak_bytes"])
         metrics = {}
         for m in (cell.per_layer if trace else cell.end_to_end):
             value = metric_reader(m["name"], root)(run)
@@ -305,4 +330,5 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    _say(f"malloc keeps freed memory: {keep_freed_memory()}")
     sys.exit(main())

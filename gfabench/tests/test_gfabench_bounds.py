@@ -141,3 +141,35 @@ def test_step_bounds_sum_the_sweeps(large_graph):
         want += cs.bound_ms(S, 4 + cs.n_words(P), 1, f32 + 3, i32,
                             cvt + 1)[0]
     assert B.sort_step_bound_ms(shape, 100) == pytest.approx(want, rel=1e-9)
+
+
+def test_plans_from_the_shape_of_a_looped_graph(tmp_path):
+    """Paths that walk a repeat unit many times: the shape counts every
+    visit as the program's index does, and both plans follow."""
+    from gfasort_tpu_torch.index import PathIndex
+    from gfasort_tpu_torch.io.gfa import parse_gfa_numeric
+    from gfasort_tpu_torch.ops.sweep_plan import (make_layout_plan,
+                                                  make_sweep_plan)
+    from gfasort_tpu_torch.params import LayoutSGDParams, PathSGDParams
+
+    from gfabench.tests.conftest import graph_config
+
+    cfg = graph_config(paths=6, haplotype_bp=300_000)
+    data = pangenome_gfa(seed=9, **cfg, repeat_arrays=[
+        {"at": 0.5, "unit_bp": 2000, "unit_theta": 0.004,
+         "copies": [40, 60], "absent_share": 0.3}])
+    path = tmp_path / "g.gfa"
+    path.write_bytes(data)
+    pidx = PathIndex.from_graph(parse_gfa_numeric(data.decode()))
+    shape = GraphShape.of(summarize(path))
+    assert shape == GraphShape(pidx.total_steps, pidx.num_nodes,
+                               pidx.max_path_step_count,
+                               pidx.sum_path_step_count,
+                               pidx.max_path_length)
+    walks = np.split(pidx.step_node_idx, pidx.path_first[1:])
+    assert any(len(np.unique(w)) < len(w) for w in walks)
+    params = replace(PathSGDParams().derive_from_graph(pidx), iter_max=100)
+    _same_plan(B._sort_plan(shape, 100), make_sweep_plan(pidx, params))
+    params = replace(LayoutSGDParams().derive_from_graph(pidx, 2),
+                     iter_max=30)
+    _same_plan(B._layout_plan(shape, 2, 30), make_layout_plan(pidx, params))
