@@ -31,10 +31,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
+
 __all__ = ["JAX_ROW_RUN", "GatherConsensus", "build_gather_consensus"]
 
 JAX_ROW_RUN = 32     # terms per run of XLA:CPU's row reduction
 _JAX_GATHER_CAP = 128  # widest row of the JAX gather consensus
+# the counter of the kernel launches that ``GatherConsensus.sums`` issues
+LAUNCHES = "consensus.launches"
 
 
 def _row_sums(g: torch.Tensor, run: Optional[int]) -> torch.Tensor:
@@ -61,12 +65,19 @@ class GatherConsensus:
 
     def sums(self, xs: torch.Tensor) -> torch.Tensor:
         """xs [S] or [R, S] -> each slot's node's sum of its steps' values
-        ([NL] or [R, NL]), added in the order described above."""
+        ([NL] or [R, NL]), added in the order described above.  Counts
+        its launches under ``LAUNCHES``: the zero fill and the two cats,
+        and per class of width w one gather and w - 1 adds."""
         x_ext = torch.cat([xs, xs.new_zeros(xs.shape[:-1] + (1,))], dim=-1)
-        return torch.cat([
-            _row_sums(x_ext[..., ix.t()],
-                      self.run if ix.shape[1] <= _JAX_GATHER_CAP else None)
-            for ix in self.class_idx], dim=-1)
+        parts = []
+        for ix in self.class_idx:
+            parts.append(_row_sums(
+                x_ext[..., ix.t()],
+                self.run if ix.shape[1] <= _JAX_GATHER_CAP else None))
+            trace.count(LAUNCHES, ix.shape[1])
+        out = torch.cat(parts, dim=-1)
+        trace.count(LAUNCHES, 3)
+        return out
 
     def __call__(self, xs: torch.Tensor):
         """xs [S] or [R, S] -> (xs_new, same shape; xn_sorted [NL] or

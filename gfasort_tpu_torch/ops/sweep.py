@@ -134,7 +134,8 @@ def build_sweep_runner(
                             consts[i][cooling], keys[e], eta, cooling, P,
                             plan.active_frac, plan.knobs.snap, plan.knobs.rng)
             if (e + 1) % ce == 0:
-                xs, xn = gc(xs)
+                with span("sweep.consensus"):
+                    xs, xn = gc(xs)
         return gc.to_node_order(xn, x_node_init)
 
     def make_state(x0=None):

@@ -135,7 +135,8 @@ def build_sweep_nd_runner(
                                eta, cooling, P, plan.active_frac,
                                plan.knobs.snap, plan.knobs.rng)
             if (e + 1) % ce == 0:
-                cs, xn = gc(cs)
+                with span("sweep.consensus"):
+                    cs, xn = gc(cs)
         return gc.to_node_order(xn, cs_node_init)
 
     def make_state(init_node_coords: np.ndarray):

@@ -1,33 +1,38 @@
-"""Tracing of a job: nested spans on one clock, and the ``--trace-out``
-step log.
+"""Tracing of a job: nested spans on one clock, counters, and the
+``--trace-out`` step log.
 
 A :class:`Tracer` belongs to one job.  It records spans: each has a
 name, its start and end in seconds on ``time.perf_counter`` from the
 tracer's origin, and its parent span.  ``Tracer.step`` opens the span of
 a pipeline step and also records a :class:`TraceEvent` for it.  Code
 deep in the program opens spans with the module-level :func:`span` (or
-the :func:`spanned` decorator) without being handed the tracer: it finds
-the job's active tracer (``Tracer.active``) through a context variable,
-so jobs on other threads stay apart, and does nothing when no tracer is
-active.  A count is a count of spans: the number of ``index.build``
-spans of a job is the number of path indexes it built.
+the :func:`spanned` decorator) and adds to named counters with
+:func:`count` without being handed the tracer: both find the job's
+active tracer (``Tracer.active``) through a context variable, so jobs on
+other threads stay apart, and do nothing when no tracer is active.  A
+counter counts what the host issues, as it issues it: ``GatherConsensus
+.sums`` adds its kernel launches to ``consensus.launches``.  Spans can
+be counted too: the number of ``index.build`` spans of a job is the
+number of path indexes it built.
 
 While a ``torch.profiler`` session runs, and only then, each span also
 opens ``record_function("gfasort." + name)``: the spans then land in the
 profiler's Chrome trace, on its clock, beside the device activity.
 
-Spans stay in memory.  ``--trace-out`` writes one JSON line per step::
+Spans and counts stay in memory.  ``--trace-out`` writes one JSON line
+per step::
 
     {"event": "SGD", "seconds": 5.1, "step": 2, "nodes": ..., "edges": ...,
-     "start": 1.9, "end": 7.0,
+     "start": 1.9, "end": 7.0, "counts": {"consensus.launches": 765},
      "spans": [{"name": "index.build", "start": ..., "end": ...,
                 "parent": null}, ...]}
 
-``start`` and ``end`` are seconds from the tracer's origin; ``spans``
-lists the step's descendants in the order they opened, each ``parent``
-the index in that list of its parent span (null for a child of the step
-itself).  Spans outside every step (the GFA read, the parameters, the
-writes) add no line.
+``start`` and ``end`` are seconds from the tracer's origin; ``counts``
+holds what each counter gained while the step ran (empty where none
+did); ``spans`` lists the step's descendants in the order they opened,
+each ``parent`` the index in that list of its parent span (null for a
+child of the step itself).  Spans outside every step (the GFA read, the
+parameters, the writes) add no line.
 """
 
 from __future__ import annotations
@@ -40,9 +45,9 @@ import time
 from contextlib import contextmanager
 from contextvars import ContextVar
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
-__all__ = ["Tracer", "TraceEvent", "Span", "span", "spanned",
+__all__ = ["Tracer", "TraceEvent", "Span", "span", "spanned", "count",
            "PROFILER_PREFIX"]
 
 # the prefix of the spans' names in a profiler trace
@@ -74,8 +79,9 @@ class Span:
 
 @dataclass
 class TraceEvent:
-    """A pipeline step: its span's name and seconds, the step's meta, and
-    the span's start, end and descendants (``--trace-out``'s ``spans``)."""
+    """A pipeline step: its span's name and seconds, the step's meta, the
+    span's start and end, what the counters gained inside it, and its
+    descendants (``--trace-out``'s ``spans``)."""
 
     name: str
     seconds: float
@@ -83,12 +89,14 @@ class TraceEvent:
     start: float = 0.0
     end: float = 0.0
     spans: list = field(default_factory=list)
+    counts: dict = field(default_factory=dict)
 
     def to_json(self) -> str:
         return json.dumps(
             {"event": self.name, "seconds": round(self.seconds, 6),
              **self.meta, "start": round(self.start, 6),
-             "end": round(self.end, 6), "spans": self.spans}
+             "end": round(self.end, 6), "counts": self.counts,
+             "spans": self.spans}
         )
 
 
@@ -96,6 +104,7 @@ class TraceEvent:
 class Tracer:
     events: List[TraceEvent] = field(default_factory=list)
     spans: List[Span] = field(default_factory=list)
+    counts: Dict[str, int] = field(default_factory=dict)
     origin: float = field(default_factory=time.perf_counter)
     _open: list = field(default_factory=list, repr=False)
 
@@ -135,11 +144,16 @@ class Tracer:
             if rf is not None:
                 rf.__exit__(None, None, None)
 
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the counter ``name``."""
+        self.counts[name] = self.counts.get(name, 0) + n
+
     @contextmanager
     def step(self, name: str, **meta):
         """A pipeline step: a span, and a :class:`TraceEvent` once it
         ends."""
         i = len(self.spans)
+        before = dict(self.counts)
         try:
             with self.span(name):
                 yield
@@ -150,7 +164,9 @@ class Tracer:
                 [{"name": s.name, "start": round(s.start, 6),
                   "end": round(s.end, 6),
                   "parent": None if s.parent == i else s.parent - i - 1}
-                 for s in inner]))
+                 for s in inner],
+                {k: v - before.get(k, 0) for k, v in self.counts.items()
+                 if v != before.get(k, 0)}))
 
     def to_json_lines(self) -> str:
         return "\n".join(e.to_json() for e in self.events) + "\n"
@@ -169,6 +185,14 @@ def span(name: str):
     where no tracer is active."""
     tracer = _ACTIVE.get()
     return _NOOP if tracer is None else tracer.span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of the active tracer; nothing
+    where no tracer is active."""
+    tracer = _ACTIVE.get()
+    if tracer is not None:
+        tracer.count(name, n)
 
 
 def spanned(name: str):

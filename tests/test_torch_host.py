@@ -370,7 +370,7 @@ def test_bench_util_and_trace_match_jax(what):
         assert t_bench.rank_quality(a, b) == j_bench.rank_quality(a, b)
     else:
         # the step lines agree on the JAX tracer's keys; the port's lines
-        # add the step span's start, end and descendants
+        # add the step span's start, end, counts and descendants
         out = []
         for tracer in (TTracer(), JTracer()):
             with tracer.step("SGD", step=1, nodes=3):
@@ -381,8 +381,9 @@ def test_bench_util_and_trace_match_jax(what):
         jax_keys = set(j_line) - {"seconds"}
         assert {k: t_line[k] for k in jax_keys} == {k: j_line[k]
                                                     for k in jax_keys}
-        assert set(t_line) - set(j_line) == {"start", "end", "spans"}
-        assert t_line["spans"] == []
+        assert set(t_line) - set(j_line) == {"start", "end", "counts",
+                                             "spans"}
+        assert t_line["spans"] == [] and t_line["counts"] == {}
         assert 0 <= t_line["start"] <= t_line["end"]
         assert t_line["end"] - t_line["start"] == pytest.approx(
             t_line["seconds"], abs=1e-5)

@@ -207,3 +207,131 @@ def test_a_job_builds_the_path_index_four_or_three_times(pipeline, tmp_path,
     step = {"sYgs": ["SGD"] * 2, "L": ["2D layout"]}[pipeline]
     assert sorted(builds) == sorted(["pipeline.params"] * 2 + step)
     assert (t.spans[0].name, t.spans[-1].name) == ("gfa.read", "gfa.write")
+
+
+def test_count_is_a_noop_without_an_active_tracer():
+    t = Tracer()
+    trace.count("x", 5)
+    with t.active():
+        trace.count("x", 2)
+        trace.count("x")
+        trace.count("y", 0)
+    trace.count("x", 7)
+    assert t.counts == {"x": 3, "y": 0}
+
+
+def test_a_step_event_holds_what_its_counters_gained():
+    t = Tracer()
+    with t.active():
+        trace.count("c", 4)
+        with t.step("SGD"):
+            trace.count("c", 3)
+            trace.count("d", 1)
+        with t.step("groom"):
+            pass
+    sgd, groom = (json.loads(e.to_json()) for e in t.events)
+    assert sgd["counts"] == {"c": 3, "d": 1}
+    assert groom["counts"] == {}
+    assert t.counts == {"c": 7, "d": 1}
+
+
+def test_counts_of_two_threads_stay_apart():
+    """Two threads, each with its own active tracer, add to the same
+    counter in turns (a barrier between adds): each tracer holds only its
+    own adds."""
+    rounds = 40
+    meet = threading.Barrier(2, timeout=30)
+    tracers = {}
+
+    def job(name, n):
+        t = tracers[name] = Tracer()
+        with t.active():
+            for _ in range(rounds):
+                trace.count("consensus.launches", n)
+                meet.wait()
+
+    threads = [threading.Thread(target=job, args=a)
+               for a in (("p", 1), ("q", 10))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+        assert not th.is_alive()
+    assert tracers["p"].counts == {"consensus.launches": rounds}
+    assert tracers["q"].counts == {"consensus.launches": 10 * rounds}
+
+
+def _looped_text(copies=(60, 50, 40)):
+    """``_text()``'s graph with a collapsed tandem repeat after it: path
+    p walks a chain of three new nodes ``copies[p]`` times, with an edge
+    from the chain's end back to its start, so each chain node has
+    sum(copies) steps (150: a class wider than 128)."""
+    lines = _text().splitlines()
+    n = sum(1 for x in lines if x.startswith("S\t"))
+    loop = [n + 1, n + 2, n + 3]
+    out = [x for x in lines if not x.startswith("P\t")]
+    out += [f"S\t{i}\t{'ACGTTGCA'[: 3 + i % 5]}" for i in loop]
+    out += [f"L\t{a}\t+\t{b}\t+\t0M"
+            for a, b in zip(loop, loop[1:] + loop[:1])]
+    for x, k in zip((x for x in lines if x.startswith("P\t")), copies):
+        _, name, steps, rest = x.split("\t")
+        last = steps.rsplit(",", 1)[-1]
+        out.append(f"L\t{last[:-1]}\t{last[-1]}\t{loop[0]}\t+\t0M")
+        steps += "," + ",".join(f"{i}+" for i in loop * k)
+        out.append(f"P\t{name}\t{steps}\t{rest}")
+    return "\n".join(out) + "\n"
+
+
+def _consensus_launches(text):
+    """The launches of one consensus on the graph of ``text``, from its
+    steps alone: the zero fill and two cats, and per width class w (each
+    live node's degree rounded up to a power of two) one gather and
+    w - 1 adds."""
+    from collections import Counter
+
+    deg = Counter(s[:-1] for x in text.splitlines() if x.startswith("P\t")
+                  for s in x.split("\t")[2].split(","))
+    widths = {1 << (d - 1).bit_length() for d in deg.values()}
+    return 3 + sum(widths)
+
+
+@pytest.mark.parametrize("pipeline,runner,plan_fn,step", [
+    ("sYgs", "gfasort_tpu_torch.ops.sweep", "make_sweep_plan", "SGD"),
+    ("L", "gfasort_tpu_torch.ops.sweep_nd", "make_layout_plan", "2D layout"),
+])
+def test_consensus_spans_and_launches_on_a_looped_graph(
+        pipeline, runner, plan_fn, step, tmp_path, monkeypatch):
+    """A CLI job on a graph with a collapsed repeat (a node of 150 steps):
+    one ``sweep.consensus`` span per consensus period of the runner's
+    plan, each inside ``sweep.run``, and the step's line counts as many
+    consensus launches as the graph's width classes give per period."""
+    import importlib
+
+    mod = importlib.import_module(runner)
+    plans = []
+    make = getattr(mod, plan_fn)
+
+    def recording(*a, **k):
+        plans.append(make(*a, **k))
+        return plans[-1]
+
+    monkeypatch.setattr(mod, plan_fn, recording)
+    text = _looped_text()
+    src, out = tmp_path / "in.gfa", tmp_path / "steps.jsonl"
+    src.write_text(text)
+    assert cli.main(["-i", str(src), "-o", str(tmp_path / "out.gfa"),
+                     "-p", pipeline, "--trace-out", str(out),
+                     *CPU_SWEEP]) == 0
+    (plan,) = plans
+    periods = plan.n_exec // plan.consensus_every
+    assert periods >= 1
+    (line,) = [json.loads(x) for x in out.read_text().splitlines()
+               if json.loads(x)["event"] == step]
+    spans = line["spans"]
+    cons = [s for s in spans if s["name"] == "sweep.consensus"]
+    assert len(cons) == periods
+    for s in cons:
+        assert spans[s["parent"]]["name"] == "sweep.run"
+    assert _consensus_launches(text) > 3 + 256
+    assert line["counts"] == {
+        "consensus.launches": periods * _consensus_launches(text)}
